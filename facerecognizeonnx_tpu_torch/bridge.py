@@ -1,0 +1,280 @@
+"""Weights bridge: JAX param trees (as numpy) → the port's nn.Modules.
+
+`params_from_numpy(tree)` takes a param pytree of the JAX package —
+after `jax.device_get`, or any tree of array-likes — and returns the
+port's SCRFD or IResNet module. Both unfolded trees and
+`fold_inference_params` trees (post-conv BN keys absent, conv biases
+present) are accepted. Layout conversions:
+
+  conv   HWIO → OIHW  (w.transpose(3, 2, 0, 1)); depthwise is HWIO, I=1
+  FC     (din, dout) → (dout, din)
+  BN dicts and PReLU alphas are copied as they are.
+
+`init_params_numpy(arch, seed)` draws a tree of the same shapes as the
+JAX initializers (He-normal convs and FC, identity BN, PReLU 0.25, the
+SCRFD focal-style cls bias) with numpy, for hosts without JAX. Its
+values differ from `jax.random`'s.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
+from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER
+from facerecognizeonnx_tpu_torch.models.arcface import (
+    IRESNET_SPECS,
+    IBasicBlock,
+    IResNet,
+)
+from facerecognizeonnx_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    ConvUnit,
+    Linear,
+    PReLU,
+)
+from facerecognizeonnx_tpu_torch.models.scrfd import (
+    NUM_ANCHORS,
+    SCRFD,
+    SCRFD_VARIANTS,
+    STRIDES,
+    UNPORTED_VARIANT,
+    DWSepBlock,
+)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+
+
+# ---------------------------------------------------------------- tree → module
+
+
+def _conv(p, stride=1, padding=0, groups=1) -> Conv:
+    w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)  # HWIO → OIHW
+    b = _t(p["b"]) if "b" in p else None
+    return Conv(_t(w), b, stride, padding, groups)
+
+
+def _bn(p) -> Optional[BatchNorm]:
+    if p is None:
+        return None
+    return BatchNorm(_t(p["scale"]), _t(p["bias"]), _t(p["mean"]), _t(p["var"]))
+
+
+def _prelu(p) -> PReLU:
+    return PReLU(_t(p["alpha"]))
+
+
+def _linear(p) -> Linear:
+    w = np.asarray(p["w"], np.float32).T  # (din, dout) → (dout, din)
+    return Linear(_t(w), _t(p["b"]) if "b" in p else None)
+
+
+def _scrfd_from_tree(tree) -> SCRFD:
+    backbone = tree["backbone"]
+    plan = SCRFD_VARIANTS["500m"]["plan"]
+    if (
+        len(backbone) != len(plan) - 1
+        or any("pw" not in blk for blk in backbone)
+        or any(
+            np.shape(blk["pw"]["w"])[-1] != cout
+            for (cout, _), blk in zip(plan[1:], backbone)
+        )
+    ):
+        raise NotImplementedError(UNPORTED_VARIANT)
+
+    st = tree["stem"]
+    stem = ConvUnit(_conv(st["conv"], 2, 1), _bn(st.get("bn")), _prelu(st["prelu"]))
+    blocks = []
+    cin = plan[0][0]
+    for (cout, stride), blk in zip(plan[1:], backbone):
+        dw = ConvUnit(
+            _conv(blk["dw"], stride, 1, groups=cin),
+            _bn(blk.get("dw_bn")),
+            _prelu(blk["dw_prelu"]),
+        )
+        pw = ConvUnit(_conv(blk["pw"]), _bn(blk.get("pw_bn")), _prelu(blk["pw_prelu"]))
+        blocks.append(DWSepBlock(dw, pw))
+        cin = cout
+    n = tree["neck"]
+    neck = {k: _conv(n[k], 1, 1 if k.startswith("smooth") else 0) for k in n}
+    h = tree["head"]
+    head_convs = [
+        ConvUnit(_conv(cp["conv"], 1, 1), _bn(cp.get("bn")), _prelu(cp["prelu"]))
+        for cp in h["convs"]
+    ]
+    scales = {s: float(np.asarray(tree["scales"][f"s{s}"])) for s in STRIDES}
+    return SCRFD(
+        stem, blocks, neck, head_convs,
+        _conv(h["cls"], 1, 1), _conv(h["bbox"], 1, 1), _conv(h["kps"], 1, 1),
+        scales,
+    )
+
+
+def _iresnet_from_tree(tree) -> IResNet:
+    stem = ConvUnit(_conv(tree["conv1"], 1, 1), _bn(tree.get("bn1")),
+                    _prelu(tree["prelu1"]))
+    stages = []
+    for s in (1, 2, 3, 4):
+        stage = []
+        for b, p in enumerate(tree[f"layer{s}"]):
+            stride = 2 if b == 0 else 1
+            down = None
+            if "down_conv" in p:
+                down = ConvUnit(_conv(p["down_conv"], stride, 0), _bn(p.get("down_bn")))
+            stage.append(
+                IBasicBlock(
+                    _bn(p["bn1"]),
+                    ConvUnit(_conv(p["conv1"], 1, 1), _bn(p.get("bn2")),
+                             _prelu(p["prelu"])),
+                    ConvUnit(_conv(p["conv2"], stride, 1), _bn(p.get("bn3"))),
+                    down,
+                )
+            )
+        stages.append(stage)
+    return IResNet(stem, stages, _bn(tree["bn2"]), _linear(tree["fc"]),
+                   _bn(tree.get("features_bn")))
+
+
+def params_from_numpy(tree: Dict) -> torch.nn.Module:
+    """JAX SCRFD / IResNet param tree → the port's module (float32, CPU;
+    move it with `.to(device)`)."""
+    if "stem" in tree and "backbone" in tree:
+        return _scrfd_from_tree(tree)
+    if "layer1" in tree:
+        return _iresnet_from_tree(tree)
+    if "body" in tree or "pos_embed" in tree:
+        raise NotImplementedError(UNPORTED_RECOGNIZER)
+    raise ModelLoadError("param tree matches no known model (SCRFD or IResNet)")
+
+
+# ---------------------------------------------------------------- numpy init
+
+
+class _Init:
+    """He-normal initializers mirroring models/layers.py of the JAX package."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def conv(self, kh, kw, cin, cout, groups=1):
+        std = (2.0 / (kh * kw * cin // groups)) ** 0.5
+        w = self.rng.standard_normal((kh, kw, cin // groups, cout), np.float32)
+        return {"w": w * np.float32(std)}
+
+    def linear(self, din, dout):
+        std = (2.0 / din) ** 0.5
+        w = self.rng.standard_normal((din, dout), np.float32) * np.float32(std)
+        return {"w": w, "b": np.zeros((dout,), np.float32)}
+
+    @staticmethod
+    def bn(c):
+        return {
+            "scale": np.ones((c,), np.float32),
+            "bias": np.zeros((c,), np.float32),
+            "mean": np.zeros((c,), np.float32),
+            "var": np.ones((c,), np.float32),
+        }
+
+    @staticmethod
+    def prelu(c):
+        return {"alpha": np.full((c,), 0.25, np.float32)}
+
+
+def _scrfd_tree(init: _Init, variant: str) -> Dict:
+    if variant not in SCRFD_VARIANTS:
+        raise NotImplementedError(UNPORTED_VARIANT)
+    spec = SCRFD_VARIANTS[variant]
+    plan, neck_ch, head_ch = spec["plan"], spec["neck"], spec["head"]
+    stem_ch = plan[0][0]
+    tree: Dict = {
+        "stem": {
+            "conv": init.conv(3, 3, 3, stem_ch),
+            "bn": init.bn(stem_ch),
+            "prelu": init.prelu(stem_ch),
+        }
+    }
+    blocks, cin = [], stem_ch
+    for cout, _ in plan[1:]:
+        blocks.append({
+            "dw": init.conv(3, 3, cin, cin, groups=cin),
+            "dw_bn": init.bn(cin),
+            "dw_prelu": init.prelu(cin),
+            "pw": init.conv(1, 1, cin, cout),
+            "pw_bn": init.bn(cout),
+            "pw_prelu": init.prelu(cout),
+        })
+        cin = cout
+    tree["backbone"] = blocks
+    c3, c4, c5 = sorted({c for c, _ in plan})[-3:]
+    tree["neck"] = {
+        "lat_c3": init.conv(1, 1, c3, neck_ch),
+        "lat_c4": init.conv(1, 1, c4, neck_ch),
+        "lat_c5": init.conv(1, 1, c5, neck_ch),
+        "smooth_p3": init.conv(3, 3, neck_ch, neck_ch),
+        "smooth_p4": init.conv(3, 3, neck_ch, neck_ch),
+        "smooth_p5": init.conv(3, 3, neck_ch, neck_ch),
+    }
+    convs, cin = [], neck_ch
+    for _ in range(spec["stacked"]):
+        convs.append({
+            "conv": init.conv(3, 3, cin, head_ch),
+            "bn": init.bn(head_ch),
+            "prelu": init.prelu(head_ch),
+        })
+        cin = head_ch
+    head = {"convs": convs}
+    for name, k, bias in (("cls", 1, -4.59), ("bbox", 4, 0.0), ("kps", 10, 0.0)):
+        head[name] = init.conv(3, 3, head_ch, NUM_ANCHORS * k)
+        head[name]["b"] = np.full((NUM_ANCHORS * k,), bias, np.float32)
+    tree["head"] = head
+    tree["scales"] = {f"s{s}": np.ones((), np.float32) for s in STRIDES}
+    return tree
+
+
+def _iresnet_tree(init: _Init, arch: str, input_size: int, feature_dim: int) -> Dict:
+    blocks, widths = IRESNET_SPECS[arch]
+    tree: Dict = {
+        "conv1": init.conv(3, 3, 3, 64),
+        "bn1": init.bn(64),
+        "prelu1": init.prelu(64),
+    }
+    inplanes = 64
+    for s, (n, planes) in enumerate(zip(blocks, widths), start=1):
+        stage = []
+        for b in range(n):
+            block = {
+                "bn1": init.bn(inplanes),
+                "conv1": init.conv(3, 3, inplanes, planes),
+                "bn2": init.bn(planes),
+                "prelu": init.prelu(planes),
+                "conv2": init.conv(3, 3, planes, planes),
+                "bn3": init.bn(planes),
+            }
+            if b == 0 or inplanes != planes:
+                block["down_conv"] = init.conv(1, 1, inplanes, planes)
+                block["down_bn"] = init.bn(planes)
+            stage.append(block)
+            inplanes = planes
+        tree[f"layer{s}"] = stage
+    spatial = input_size // 16
+    tree["bn2"] = init.bn(widths[-1])
+    tree["fc"] = init.linear(widths[-1] * spatial * spatial, feature_dim)
+    tree["features_bn"] = init.bn(feature_dim)
+    return tree
+
+
+def init_params_numpy(
+    arch: str, seed: int = 0, input_size: int = 112, feature_dim: int = 512
+) -> Dict:
+    """Random param tree for an SCRFD variant ("500m") or an IResNet
+    ("iresnet18/34/50/100"), JAX layouts, drawn from `seed` with numpy."""
+    init = _Init(seed)
+    if arch in IRESNET_SPECS:
+        return _iresnet_tree(init, arch, input_size, feature_dim)
+    return _scrfd_tree(init, arch)

@@ -1,0 +1,86 @@
+"""Central configuration for the PyTorch face pipeline.
+
+Same fields and defaults as `facerecognizeonnx_tpu.config.PipelineConfig`
+so a config can be read by either package. `warp_impl` names the port's
+warp implementations:
+
+  "gather" — exact cv2-bilinear parity (4 gather indices/pixel), any device
+  "cuda"   — the hand-written Hopper kernel (ops/warp_cuda.py); a CPU
+             tensor takes its plain-torch version
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+WARP_IMPLS = ("gather", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    # --- detector
+    det_input_size: int = 640
+    score_threshold: float = 0.5
+    nms_threshold: float = 0.4
+    strides: Tuple[int, ...] = (8, 16, 32)
+    num_anchors: int = 2
+    pre_nms_topk: int = 512
+    max_faces: int = 128
+    # IoU on integer-truncated rects (C int-cast semantics)
+    nms_int_rects: bool = True
+
+    # --- recognizer
+    rec_input_size: int = 112
+    feature_dim: int = 512
+    rec_arch: str = "iresnet50"
+    recognizer_quant: str = "none"
+
+    # --- matching, on the (cos+1)/2 scale
+    match_threshold: float = 0.6
+
+    # --- normalization
+    pixel_mean: float = 127.5
+    pixel_scale: float = 128.0
+
+    # --- execution
+    compute_dtype: str = "bfloat16"
+    host_letterbox: bool = False
+    scrfd_variant: str = "500m"
+    warp_impl: str = "gather"
+    # kept for field parity with the JAX config; the port has no
+    # interpret mode (a CPU tensor takes the kernel's plain version)
+    warp_interpret: bool = False
+    # skip the warp for unoccupied face slots (zeros in their crops)
+    skip_invalid_faces: bool = True
+    param_dtype: str = "float32"
+    data_axis: str = "data"
+    model_axis: str = "model"
+
+    # --- model weights
+    detector_weights: Optional[str] = None
+    recognizer_weights: Optional[str] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.warp_impl not in WARP_IMPLS:
+            raise ValueError(
+                f"warp_impl must be one of {WARP_IMPLS}, got {self.warp_impl!r}"
+            )
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+DEFAULT_CONFIG = PipelineConfig()
+
+
+def auto_config(**overrides) -> PipelineConfig:
+    """PipelineConfig for the current host: the CUDA warp kernel when a
+    GPU is present, the portable gather warp elsewhere."""
+    base = dict(warp_impl="cuda" if torch.cuda.is_available() else "gather")
+    base.update(overrides)
+    return PipelineConfig(**base)

@@ -1,0 +1,61 @@
+"""The port imports torch and never jax (nor the JAX package)."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+SLICE_MODULES = [
+    "facerecognizeonnx_tpu_torch",
+    "facerecognizeonnx_tpu_torch.config",
+    "facerecognizeonnx_tpu_torch.types",
+    "facerecognizeonnx_tpu_torch.errors",
+    "facerecognizeonnx_tpu_torch.bridge",
+    "facerecognizeonnx_tpu_torch.ops.image",
+    "facerecognizeonnx_tpu_torch.ops.nms",
+    "facerecognizeonnx_tpu_torch.ops.topk",
+    "facerecognizeonnx_tpu_torch.ops.umeyama",
+    "facerecognizeonnx_tpu_torch.ops.warp",
+    "facerecognizeonnx_tpu_torch.ops.warp_cuda",
+    "facerecognizeonnx_tpu_torch.models",
+    "facerecognizeonnx_tpu_torch.models.layers",
+    "facerecognizeonnx_tpu_torch.models.scrfd",
+    "facerecognizeonnx_tpu_torch.models.arcface",
+    "facerecognizeonnx_tpu_torch.detect.decode",
+    "facerecognizeonnx_tpu_torch.detect.pipeline",
+    "facerecognizeonnx_tpu_torch.embed.pipeline",
+    "facerecognizeonnx_tpu_torch.match.similarity",
+    "facerecognizeonnx_tpu_torch.pipeline.fused",
+]
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k.split('.')[0] == 'facerecognizeonnx_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_without_a_card_fails_and_imports_no_jax():
+    """chip_smoke.py runs where there is no JAX, and has no CPU path:
+    without a CUDA device it exits non-zero and prints no result."""
+    src = (REPO / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "facerecognizeonnx_tpu." not in src
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
