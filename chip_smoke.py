@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py        # from the repo root, on a host with a CUDA card
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for the float32 checks
-  2. build csrc/warp_xm.cu with nvcc for sm_90a (first use builds it)
-  3. the warp kernel vs its plain-torch version on the card: 16 frames of
-     640x640, K=8 faces each over pyramid levels 0-3, frame edges, one
-     degenerate matrix and a mixed valid mask; raw and epilogue outputs;
-     and 2 frames with odd sides (251x317);
-     kernel, plain and pyramid times (median of 20, CUDA events)
+  2. build every csrc/*.cu with nvcc for sm_90a, one nvcc per source, all
+     started together
+  3. the x-major warp kernel vs its plain-torch version on the card: 16
+     frames of 640x640, K=8 faces each over pyramid levels 0-3, frame
+     edges, one degenerate matrix and a mixed valid mask; raw and
+     epilogue outputs; and 2 frames with odd sides (251x317); kernel,
+     plain and pyramid times (median of 20, CUDA events)
   4. small-input agreement: frames_to_matches at 128x128 with iresnet18 in
      float32, kernel path on the card vs the port's CPU path (the plain
      warp, which tests/test_torch_pipeline.py holds against the JAX package)
@@ -22,8 +23,26 @@ Phases (any failure exits non-zero; there is no CPU path):
      the same detections through the plain warp (crops held against the
      kernel's at these shapes, features by cosine); frames/s and faces/s
      (median of 10 after warm-up) and a per-stage time split
-  6. one JSON line of the kernels, the nvidia-smi line, and last
+  6. the y-major warp kernel vs its plain version on phase 3's frames and
+     matrices (raw and xpass_bf16; times, median of 20), then its path:
+     `warp_cuda.warp_affine` with its default layout
+  7. the gallery top-k kernel vs its plain version at Q=128, G=100,000,
+     D=512 with 1,000 planted duplicate rows, k=5 and k=512; G=5, k=5
+     (padding never wins); self-queries; kernel, plain and library
+     composite times (median of 20)
+  8. `GalleryBank.search(method="auto")` on a 1,000,000 x 512 bank with
+     2,048 queries (Q·G > 2·10^9): it must launch the gallery kernel once;
+     64 of its rows held against the plain version
+  9. the identify path at full width: FaceDetector (SCRFD-500m, 640) and
+     FaceRecognizer (IResNet-50, bf16) on the card, enroll_batch of 64
+     frames plus 9,936 random rows (a 10,000-row bank), IdentifyService
+     two-dispatch and fuse_search with 64 concurrent requests each
+ 10. one JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}
+
+Each path is driven with every launch counter set to 0 just before it
+and read just after; launches made to compare a kernel with its plain
+version are not counted.
 
 Detections recipe (tests/test_torch_pipeline.py uses it too): random
 SCRFD weights score every anchor about σ(−4.59) ≈ 0.01, so nothing clears
@@ -37,28 +56,53 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from facerecognizeonnx_tpu_torch import bridge
+from facerecognizeonnx_tpu_torch import FaceDetector, FaceRecognizer, bridge
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
 from facerecognizeonnx_tpu_torch.embed.pipeline import (
     _align_matrices,
     align_faces_batch,
     embed_crops,
 )
+from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.models import arcface, scrfd
-from facerecognizeonnx_tpu_torch.ops import warp_cuda
+from facerecognizeonnx_tpu_torch.ops import gallery_cuda, warp_cuda
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
+from facerecognizeonnx_tpu_torch.pipeline.enroll import enroll_batch
 from facerecognizeonnx_tpu_torch.pipeline.fused import detect_topk, frames_to_matches
+from facerecognizeonnx_tpu_torch.pipeline.service import IdentifyService, _Request
+from facerecognizeonnx_tpu_torch.utils import checkpoint
 
 EPI = (127.5, 128.0)
+# the card's published peaks (H100 SXM data sheet, at 700 W): device
+# memory rate, and float32 outside the tensor cores (an FMA is 2 ops)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# float32 operations per output pixel of the warp kernels, counted from
+# their source (coordinates, 4 hat weights, 4 y taps and 2 x taps on 3
+# channels; the epilogue adds 6)
+WARP_OPS_PER_PIXEL = 80
+COUNTERS = {
+    "warp_xm": warp_cuda.warp_affine_xm,
+    "warp_ym": warp_cuda.warp_affine_ym,
+    "gallery_topk": gallery_cuda.gallery_topk_cuda,
+}
+BUILDS = {
+    "warp_xm.cu": warp_cuda.build_library,
+    "warp_ym.cu": warp_cuda.build_library_ym,
+    "gallery_topk.cu": gallery_cuda.build_library,
+}
 
 
 def log(*args):
@@ -136,7 +180,7 @@ def detection_bias(det_tree, frames_u8: torch.Tensor, per_frame=32):
     tree = {**det_tree, "head": {**det_tree["head"]}}
     tree["head"]["cls"] = {"w": det_tree["head"]["cls"]["w"],
                            "b": np.zeros_like(det_tree["head"]["cls"]["b"])}
-    model = bridge.params_from_numpy(tree).to(frames_u8.device)
+    model = bridge.params_from_numpy(tree, frames_u8.device)
     x = (frames_u8.flip(-1).float() - 127.5) / 128.0
     with torch.no_grad():
         outs = model(x)
@@ -156,6 +200,285 @@ def check_features(feats, valid, n_rows=None, idx=None):
         assert (idx[valid] < n_rows).all(), "a valid slot matched a padding row"
 
 
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_read_bytes(prm, H, W, K, win_x, win_y, valid=None) -> int:
+    """Distinct pyramid bytes that a warp over this face table reads:
+    the 2x2 taps of every output pixel of every computed face that fall
+    inside its window and its level (3 bytes each)."""
+    dev = prm.device
+    sizes = warp_cuda.level_sizes(H, W)
+    offs = torch.tensor([0] + list(np.cumsum([h * w for h, w in sizes])[:-1]), device=dev)
+    frame_px = sum(h * w for h, w in sizes)
+    faces = torch.arange(prm.shape[0], device=dev)
+    if valid is not None:
+        faces = faces[valid.reshape(-1)]
+    p = prm[faces]
+    level = p[:, 0].long()
+    hl = torch.tensor([h for h, _ in sizes], device=dev)[level][:, None]
+    wl = torch.tensor([w for _, w in sizes], device=dev)[level][:, None]
+    pix = torch.arange(112 * 112, device=dev, dtype=torch.float32)
+    fi, fj = torch.floor(pix / 112), pix % 112
+    lx = (p[:, 3:4] * fj + p[:, 4:5] * fi + p[:, 7:8]).clamp(-2.0, win_x + 1.0)
+    ly = (p[:, 5:6] * fj + p[:, 6:7] * fi + p[:, 8:9]).clamp(-2.0, win_y + 1.0)
+    ids = []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xw, yw = torch.floor(lx).long() + dx, torch.floor(ly).long() + dy
+            gx, gy = p[:, 1:2].long() + xw, p[:, 2:3].long() + yw
+            ok = (xw >= 0) & (xw < win_x) & (yw >= 0) & (yw < win_y) & (gx < wl) & (gy < hl)
+            pid = (faces // K)[:, None] * frame_px + offs[level][:, None] + gy * wl + gx
+            ids.append(pid[ok])
+    return 3 * int(torch.unique(torch.cat(ids)).numel())
+
+
+def check_topk(kv, ki, rv, ri, r_next, bar=1e-5):
+    """Kernel top-k (kv, ki) vs plain (rv, ri): sims within `bar`; indices
+    identical wherever the plain sims around a position (r_next: the
+    plain (k+1)-th value, past the last column) differ by more than
+    `bar`; equal sims in ascending index. Returns (max |Δsim|, ties)."""
+    err = float((kv - rv).abs().max())
+    assert err <= bar, f"gallery sims deviate {err}"
+    nxt = torch.cat([rv[:, 1:], r_next[:, None]], 1)
+    prev = torch.cat([torch.full_like(rv[:, :1], float("inf")), rv[:, :-1]], 1)
+    clear = ((prev - rv) > bar) & ((rv - nxt) > bar)
+    assert torch.equal(ki[clear], ri[clear].to(ki.dtype)), "gallery indices differ"
+    ties = kv[:, 1:] == kv[:, :-1]
+    assert (ki[:, 1:] > ki[:, :-1])[ties].all(), "tied sims not in ascending index"
+    return err, int(ties.sum())
+
+
+def build_all() -> float:
+    """Build every kernel source at once (one nvcc each); log ptxas."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        logs = dict(zip(BUILDS, pool.map(lambda fn: fn()[1], BUILDS.values())))
+    secs = time.perf_counter() - t0
+    log(f"build {', '.join('csrc/' + s for s in BUILDS)} in parallel: {secs:.2f} s")
+    for source, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc {source}: {line.strip()}")
+    return secs
+
+
+def phase_ymajor(frames, Ms, odd, odd_Ms, K) -> dict:
+    """The y-major kernel vs its plain version, then its path."""
+    H, W = frames.shape[1:3]
+    pyr, prm = warp_cuda.build_pyramid(frames), warp_cuda.face_params_ym(Ms)
+    odd_pyr, odd_prm = warp_cuda.build_pyramid(odd), warp_cuda.face_params_ym(odd_Ms)
+    oh, ow = odd.shape[1:3]
+    err = 0.0
+    for xbf in (False, True):
+        for p_, q_, h, w in ((pyr, prm, H, W), (odd_pyr, odd_prm, oh, ow)):
+            got = warp_cuda.resample_ym(p_, q_, h, w, K, xbf)
+            want = warp_cuda.resample_ym_reference(p_, q_, h, w, K, xbf)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            d = float((got - want).abs().max())
+            assert d <= 1e-3, f"y-major warp deviates {d} (xpass_bf16={xbf}, {h}x{w})"
+            err = max(err, d)
+    ms = event_ms(lambda: warp_cuda.resample_ym(pyr, prm, H, W, K))
+    plain_ms = event_ms(lambda: warp_cuda.resample_ym_reference(pyr, prm, H, W, K))
+    bf16_ms = event_ms(lambda: warp_cuda.resample_ym(pyr, prm, H, W, K, True))
+    n_out = prm.shape[0] * 112 * 112
+    bound, by = bound_ms(
+        warp_read_bytes(prm, H, W, K, warp_cuda.YM_WIN_X, warp_cuda.YM_WIN_Y)
+        + prm.numel() * 4 + n_out * 3 * 4,
+        n_out * WARP_OPS_PER_PIXEL,
+    )
+    # its path: the counterpart of warp_affine_pallas, default layout
+    reset_counts()
+    out = warp_cuda.warp_affine(frames, Ms)
+    torch.cuda.synchronize()
+    launches = read_counts()["warp_ym"]
+    assert launches > 0, "warp_affine(layout='ymajor') did not launch the kernel"
+    assert torch.equal(out, warp_cuda.resample_ym(pyr, prm, H, W, K))
+    log(f"y-major warp kernel vs plain (B={frames.shape[0]}, K={K}, {H}x{W}; 2 frames of "
+        f"{oh}x{ow}; raw and xpass_bf16): max|d| {err:.3g} (bar 1e-3); times (median of 20): "
+        f"kernel {ms:.4f} ms (xpass_bf16 {bf16_ms:.4f} ms) | plain {plain_ms:.4f} ms | "
+        f"bound {bound:.4f} ms ({by}); warp_affine(default layout) launches {launches}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _gallery(gen, Q, G, D, dev, dups=0):
+    g = torch.nn.functional.normalize(torch.randn(G, D, generator=gen, device=dev), dim=-1)
+    q = torch.nn.functional.normalize(torch.randn(Q, D, generator=gen, device=dev), dim=-1)
+    if dups:
+        perm = torch.randperm(G, generator=gen, device=dev)
+        src, dst = perm[:dups // 2], perm[dups // 2: dups]
+        g[dst] = g[src]  # each source row now has an exact copy elsewhere
+        q[: min(Q, 16)] = g[src[: min(Q, 16)]]  # queries whose top-k ties
+    return q, g
+
+
+def phase_gallery(dev) -> dict:
+    """The gallery kernel vs its plain version; times at Q=128, G=100,000."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Q, G, D = 128, 100_000, 512
+    q, g = _gallery(gen, Q, G, D, dev, dups=1_000)
+    err, ties = 0.0, {}
+    for k in (5, 512):
+        kv, ki = gallery_cuda.gallery_topk_cuda(q, g, k)
+        rv, ri = gallery_cuda.gallery_topk_reference(q, g, k + 1)
+        torch.cuda.synchronize()
+        e, ties[k] = check_topk(kv, ki, rv[:, :k], ri[:, :k], rv[:, k])
+        err = max(err, e)
+        assert ties[k] > 0, "the planted duplicates made no tie"
+    # padding never wins (k = G = 5), and self-queries rank first at 1.0
+    q5, g5 = _gallery(gen, 3, 5, D, dev)
+    kv, ki = gallery_cuda.gallery_topk_cuda(q5, g5 * 0.01, 5)
+    assert int(ki.max()) < 5 and torch.isfinite(kv).all()
+    assert torch.equal(ki.sort(dim=1).values.cpu(), torch.arange(5).repeat(3, 1).int())
+    kv, ki = gallery_cuda.gallery_topk_cuda(g[:8], g, 2)  # (or an exact copy of itself)
+    assert (kv[:, 0] >= 1.0 - 1e-5).all() and torch.equal(g[ki[:, 0].long()], g[:8])
+    ms = event_ms(lambda: gallery_cuda.gallery_topk_cuda(q, g, 5))
+    plain_ms = event_ms(lambda: gallery_cuda.gallery_topk_reference(q, g, 5))
+    half = torch.full((1,), 0.5, device=dev)
+    library_ms = event_ms(lambda: torch.topk(torch.addmm(half, q, g.t(), alpha=0.5), 5))
+    ms_512 = event_ms(lambda: gallery_cuda.gallery_topk_cuda(q, g, 512), iters=5)
+    bound, by = bound_ms(4 * (Q * D + G * D) + 8 * Q * 5, 2 * Q * G * D)
+    log(f"gallery kernel vs plain (Q={Q}, G={G}, D={D}, 1,000 planted duplicate rows; "
+        f"k=5 and k=512): sims max|d| {err:.3g} (bar 1e-5), indices identical outside "
+        f"1e-5 near-ties, {ties[5]} / {ties[512]} exact ties in ascending index; G=5 k=5 "
+        f"no padding; self-queries first at 1.0; times k=5 (median of 20): kernel "
+        f"{ms:.4f} ms | plain {plain_ms:.4f} ms | library composite topk(addmm) "
+        f"{library_ms:.4f} ms | bound {bound:.4f} ms ({by}); k=512 kernel {ms_512:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
+def phase_auto(dev, G=1_000_000, Q=2_048) -> int:
+    """GalleryBank.search(method="auto") past the 2·10^9 boundary on a
+    CUDA bank must stream through the kernel; returns its launches."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    D = 512
+    q, g = _gallery(gen, Q, G, D, dev)
+    bank = GalleryBank(D, device=dev)
+    bank.add_batch([f"row{i}" for i in range(G)], g.cpu().numpy())
+    del g
+    queries = q.cpu().numpy()
+    bank.search(queries[:1], 1)  # uploads the bank (cached on its version)
+    reset_counts()
+    t0 = time.perf_counter()
+    names, sims = bank.search(queries, 5, method="auto")
+    secs = time.perf_counter() - t0
+    launches = read_counts()["gallery_topk"]
+    assert launches == 1, f"auto search launched the gallery kernel {launches} times"
+    assert len(names) == Q and sims.shape == (Q, 5)
+    rv, ri = gallery_cuda.gallery_topk_reference(q[:64], bank._device_feats(), 6)
+    idx = torch.tensor([[int(n[3:]) for n in row] for row in names[:64]], device=dev)
+    err, _ = check_topk(torch.from_numpy(sims[:64]).to(dev), idx, rv[:, :5], ri[:, :5],
+                        rv[:, 5])
+    log(f"GalleryBank.search(method='auto') at Q={Q} x G={G:,} (Q·G = {Q * G:.3g} > 2e9, "
+        f"bank {G * D * 4 / 1e9:.2f} GB on the card): gallery kernel launches {launches}; "
+        f"first 64 rows vs plain: sims max|d| {err:.3g}; one search {secs * 1e3:.1f} ms "
+        f"(host clock, queries in and names out)")
+    del bank
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_identify(dev, rng, cfg=None, n_enroll=64, n_bank=10_000, n_req=64) -> dict:
+    """The 1:N identify path at full width through the user entry points."""
+    cfg = cfg or PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
+    size = cfg.det_input_size
+    frames = rng.integers(0, 256, (n_enroll, size, size, 3), dtype=np.uint8)
+    det, rec = FaceDetector(cfg, device=dev), FaceRecognizer(cfg, device=dev)
+    tree = detection_bias(bridge.init_params_numpy(cfg.scrfd_variant, seed=cfg.seed),
+                          torch.from_numpy(frames).to(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "det.npz")
+        checkpoint.save_params(path, tree)
+        assert det.load_model(path), "FaceDetector.load_model failed"
+    assert rec.load_model(), "FaceRecognizer.load_model failed"
+    names = [f"person{i:02d}" for i in range(n_enroll)]
+    reset_counts()
+    t0 = time.perf_counter()
+    bank, kept = enroll_batch(det, rec, names, list(frames), device=dev)
+    torch.cuda.synchronize()
+    enroll_s = time.perf_counter() - t0
+    assert kept == names, f"enrolled {len(kept)} of {n_enroll} frames"
+    extra = np.random.default_rng(7).normal(size=(n_bank - n_enroll, 512)).astype(np.float32)
+    bank.add_batch([f"random{i}" for i in range(len(extra))], extra)
+    assert len(bank) == n_bank
+    requests = [frames[i % n_enroll] for i in range(n_req)]
+    results, rates, lat = {}, {}, {}
+    for mode in ("two-dispatch", "fuse_search"):
+        kw = dict(max_batch=8, max_faces=8, search_top_k=5, fuse_search=mode == "fuse_search",
+                  device=dev)
+        warm = IdentifyService(det.params, rec.params, bank, cfg, **kw)
+        [f.result(300) for f in [warm.identify_async(im, 5) for im in requests[:16]]]
+        warm.close()
+        svc = IdentifyService(det.params, rec.params, bank, cfg, **kw)
+        t0 = time.perf_counter()
+        futs = [svc.identify_async(im, 5) for im in requests]
+        results[mode] = [f.result(300) for f in futs]
+        wall = time.perf_counter() - t0
+        st = svc.stats()
+        svc.close()
+        rates[mode] = n_req / wall
+        lat[mode] = st["latency_ms"]
+    counts = read_counts()
+    assert counts["warp_xm"] > 0, "the identify path did not launch the warp kernel"
+    # one batch of 8 split by hand (the service is closed): host letterbox,
+    # dispatch (letterbox included; synchronized), resolve; median of 5
+    splits = []
+    for _ in range(5):
+        batch = [_Request(image=im, top_k=5) for im in requests[:8]]
+        t0 = time.perf_counter()
+        for r in batch:
+            svc._letterbox(r.image)
+        t1 = time.perf_counter()
+        ctx = svc._dispatch(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        svc._resolve(ctx)
+        t3 = time.perf_counter()
+        splits.append(((t1 - t0) * 1e3, (t2 - t1 - (t1 - t0)) * 1e3, (t3 - t2) * 1e3))
+    lb_ms, disp_ms, res_ms = (statistics.median(x) for x in zip(*splits))
+    sim_err, exact = 0.0, 0
+    for a, b in zip(results["two-dispatch"], results["fuse_search"]):
+        assert np.array_equal(a.valid, b.valid) and a.valid[0], "slot 0 empty or masks differ"
+        sim_err = max(sim_err, float(np.abs(a.sims - b.sims).max()))
+        exact += a.names == b.names
+        for j in np.nonzero(a.valid)[0]:
+            gaps = np.abs(np.diff(a.sims[j])) > 1e-5  # near-ties may swap
+            clear = np.concatenate([[True], gaps]) & np.concatenate([gaps, [True]])
+            assert [n for n, c in zip(a.names[j], clear) if c] == \
+                [n for n, c in zip(b.names[j], clear) if c], (a.names[j], b.names[j])
+        assert a.sims[0, 0] >= 0.99, f"a request's top-1 sim is {a.sims[0, 0]}"
+    assert sim_err <= 1e-3, sim_err
+    top1 = min(float(r.sims[0, 0]) for r in results["two-dispatch"])
+    log(f"identify path (SCRFD-500m {size} + {cfg.rec_arch} {cfg.compute_dtype}, enroll "
+        f"{n_enroll} frames in "
+        f"{enroll_s:.2f} s, bank {len(bank):,} rows; IdentifyService max_batch=8, "
+        f"max_faces=8, search_top_k=5, {n_req} concurrent requests): two-dispatch "
+        f"{rates['two-dispatch']:.1f} req/s p50 {lat['two-dispatch']['p50']} ms p99 "
+        f"{lat['two-dispatch']['p99']} ms | fuse_search {rates['fuse_search']:.1f} req/s "
+        f"p50 {lat['fuse_search']['p50']} ms p99 {lat['fuse_search']['p99']} ms; modes: "
+        f"{exact}/{n_req} identical name lists (the rest differ only inside 1e-5 "
+        f"near-ties), sims max|d| {sim_err:.3g} (bar 1e-3); top-1 sim min {top1:.5f} "
+        f"(bar 0.99); one fuse_search batch of 8 by hand: host letterbox {lb_ms:.2f} ms, "
+        f"dispatch less letterbox {disp_ms:.2f} ms, resolve {res_ms:.2f} ms (median of 5); "
+        f"launches {counts}")
+    return counts
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -171,13 +494,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log("TF32 off for cuDNN convolutions and matmuls (float32 checks run in full f32)")
 
-    # ---- 2. build
-    t0 = time.perf_counter()
-    _, build_log = warp_cuda.build_library()
-    log(f"build csrc/warp_xm.cu: {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  nvcc: {line.strip()}")
+    # ---- 2. build every kernel source
+    build_all()
 
     # ---- 3. the kernel vs its plain version
     rng = np.random.default_rng(0)
@@ -185,7 +503,7 @@ def main() -> int:
     frames = torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev)
     Ms = torch.from_numpy(spread_matrices(rng, B, K, H, W)).to(dev)
     valid = torch.from_numpy(rng.uniform(size=(B, K)) < 0.6).to(dev)
-    pyr = warp_cuda.build_pyramid_xm(frames)
+    pyr = warp_cuda.build_pyramid(frames)
     prm = warp_cuda.face_params_xm(Ms)
     levels = sorted(set(prm[:, 0].int().tolist()))
     assert levels == [0, 1, 2, 3], levels
@@ -208,7 +526,7 @@ def main() -> int:
     # odd frame sides: level sizes floor, so the kernel's level offsets differ
     odd = torch.from_numpy(rng.integers(0, 256, (2, 251, 317, 3), dtype=np.uint8)).to(dev)
     odd_Ms = torch.from_numpy(spread_matrices(rng, 2, K, 251, 317)).to(dev)
-    odd_pyr, odd_prm = warp_cuda.build_pyramid_xm(odd), warp_cuda.face_params_xm(odd_Ms)
+    odd_pyr, odd_prm = warp_cuda.build_pyramid(odd), warp_cuda.face_params_xm(odd_Ms)
     odd_err = float(
         (warp_cuda.resample_xm(odd_pyr, odd_prm, 251, 317, K)
          - warp_cuda.resample_xm_reference(odd_pyr, odd_prm, 251, 317, K)).abs().max()
@@ -224,12 +542,19 @@ def main() -> int:
     plain_ms = event_ms(
         lambda: warp_cuda.resample_xm_reference(pyr, prm, H, W, K, EPI, all_valid)
     )
-    pyr_ms = event_ms(lambda: warp_cuda.build_pyramid_xm(frames))
+    pyr_ms = event_ms(lambda: warp_cuda.build_pyramid(frames))
     params_ms = event_ms(lambda: warp_cuda.face_params_xm(Ms))
     wrapper_ms = event_ms(lambda: warp_cuda.warp_affine_xm(frames, Ms, EPI, all_valid))
+    xm_bound, xm_by = bound_ms(
+        warp_read_bytes(prm, H, W, K, warp_cuda.WIN_X, warp_cuda.WIN_Y, all_valid)
+        + prm.numel() * 4 + B * K * 112 * 112 * 3 * 2,
+        B * K * 112 * 112 * WARP_OPS_PER_PIXEL,
+    )
     log(f"warp times (B={B}, K={K}, epilogue, all slots valid; median of 20): "
         f"kernel {kernel_ms:.4f} ms | plain {plain_ms:.4f} ms | pyramid {pyr_ms:.4f} ms "
-        f"| face table {params_ms:.4f} ms | whole warp_affine_xm {wrapper_ms:.4f} ms")
+        f"| face table {params_ms:.4f} ms | whole warp_affine_xm {wrapper_ms:.4f} ms | "
+        f"bound {xm_bound:.4f} ms ({xm_by})")
+    warp_case = (frames, Ms, odd, odd_Ms, K)
 
     # ---- 4. small input: the card's kernel path vs the port's CPU path (f32)
     small_cfg = PipelineConfig(det_input_size=128, compute_dtype="float32", warp_impl="cuda")
@@ -237,8 +562,8 @@ def main() -> int:
     small_det_tree = detection_bias(
         bridge.init_params_numpy("500m", seed=3), torch.from_numpy(small_frames)
     )
-    small_det = bridge.params_from_numpy(small_det_tree)
-    small_rec = bridge.params_from_numpy(bridge.init_params_numpy("iresnet18", seed=4))
+    small_det = bridge.params_from_numpy(small_det_tree, "cpu")
+    small_rec = bridge.params_from_numpy(bridge.init_params_numpy("iresnet18", seed=4), "cpu")
     small_bank = torch.nn.functional.normalize(
         torch.from_numpy(rng.normal(size=(48, 512)).astype(np.float32)), dim=-1
     )
@@ -270,10 +595,10 @@ def main() -> int:
         rng.integers(0, 256, (B, 640, 640, 3), dtype=np.uint8)
     ).to(dev)
     det_tree = detection_bias(bridge.init_params_numpy("500m", seed=0), frames)
-    det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree)).to(dev)
+    det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree, dev))
     rec = arcface.fold_inference_params(
-        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1))
-    ).to(dev)
+        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1), dev)
+    )
     gen = torch.Generator(device="cpu").manual_seed(2)
     bank = torch.zeros((G_PAD, 512), dtype=torch.float32)
     bank[:N_ROWS] = torch.nn.functional.normalize(torch.randn(N_ROWS, 512, generator=gen), dim=-1)
@@ -283,10 +608,10 @@ def main() -> int:
         return frames_to_matches(det, rec, frames, bank, N_ROWS, c, K, TOP_K)
 
     with torch.no_grad():
-        warp_cuda.warp_affine_xm.launches = 0
+        reset_counts()
         dets, feats, sims, idx = run(cfg)
         torch.cuda.synchronize()
-        main_launches = warp_cuda.warp_affine_xm.launches
+        main_launches = read_counts()["warp_xm"]
         assert main_launches > 0, "the main path did not launch the warp kernel"
         slot_valid = dets.valid[:, :K]
         assert slot_valid.any(dim=-1).all(), "a frame found no faces"
@@ -344,18 +669,33 @@ def main() -> int:
         f"{align_ms:.3f} ms | embed {embed_ms:.3f} ms | match {match_ms:.3f} ms | "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
-    # ---- 6. result lines
-    log(json.dumps({"kernels": [{
-        "name": "warp_xm",
-        "route": "cuda",
-        "source": "facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
-        "replaces": "facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm)",
-        "launches": main_launches,
-        "max_abs_err": raw_err,
-        "max_abs_dev": raw_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 6. the y-major warp kernel, and its path
+    ym = phase_ymajor(*warp_case)
+
+    # ---- 7. the gallery top-k kernel vs its plain version
+    gallery = phase_gallery(dev)
+
+    # ---- 8. GalleryBank.search(method="auto") past the 2·10^9 boundary
+    gallery["launches"] = phase_auto(dev)
+
+    # ---- 9. the identify path at full width
+    phase_identify(dev, rng)
+
+    # ---- 10. result lines
+    kernels = [
+        dict(name="warp_xm", route="cuda",
+             source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
+             replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm)",
+             launches=main_launches, max_abs_err=raw_err, ms=kernel_ms, plain_ms=plain_ms,
+             bound_ms=xm_bound, bound_by=xm_by, library_ms=None),
+        dict(name="warp_ym", route="cuda",
+             source="facerecognizeonnx_tpu_torch/csrc/warp_ym.cu",
+             replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:101 (_kernel)", **ym),
+        dict(name="gallery_topk", route="cuda",
+             source="facerecognizeonnx_tpu_torch/csrc/gallery_topk.cu",
+             replaces="facerecognizeonnx_tpu/ops/pallas_gallery.py:60 (_kernel)", **gallery),
+    ]
+    log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

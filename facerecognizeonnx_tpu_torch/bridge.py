@@ -1,8 +1,8 @@
 """Weights bridge: JAX param trees (as numpy) → the port's nn.Modules.
 
-`params_from_numpy(tree)` takes a param pytree of the JAX package —
-after `jax.device_get`, or any tree of array-likes — and returns the
-port's SCRFD or IResNet module. Both unfolded trees and
+`params_from_numpy(tree, device="cuda")` takes a param pytree of the JAX
+package — after `jax.device_get`, or any tree of array-likes — and
+returns the port's SCRFD or IResNet module on `device`. Both unfolded trees and
 `fold_inference_params` trees (post-conv BN keys absent, conv biases
 present) are accepted. Layout conversions:
 
@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from facerecognizeonnx_tpu_torch.config import resolve_device
 from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER
 from facerecognizeonnx_tpu_torch.models.arcface import (
@@ -141,16 +142,19 @@ def _iresnet_from_tree(tree) -> IResNet:
                    _bn(tree.get("features_bn")))
 
 
-def params_from_numpy(tree: Dict) -> torch.nn.Module:
-    """JAX SCRFD / IResNet param tree → the port's module (float32, CPU;
-    move it with `.to(device)`)."""
+def params_from_numpy(tree: Dict, device="cuda") -> torch.nn.Module:
+    """JAX SCRFD / IResNet param tree → the port's module, float32, on
+    `device` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     if "stem" in tree and "backbone" in tree:
-        return _scrfd_from_tree(tree)
-    if "layer1" in tree:
-        return _iresnet_from_tree(tree)
-    if "body" in tree or "pos_embed" in tree:
+        model = _scrfd_from_tree(tree)
+    elif "layer1" in tree:
+        model = _iresnet_from_tree(tree)
+    elif "body" in tree or "pos_embed" in tree:
         raise NotImplementedError(UNPORTED_RECOGNIZER)
-    raise ModelLoadError("param tree matches no known model (SCRFD or IResNet)")
+    else:
+        raise ModelLoadError("param tree matches no known model (SCRFD or IResNet)")
+    return model.to(dev)
 
 
 # ---------------------------------------------------------------- numpy init

@@ -78,6 +78,19 @@ class PipelineConfig:
 DEFAULT_CONFIG = PipelineConfig()
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on. The port's entry points
+    default to "cuda"; asking for CUDA where there is none raises rather
+    than running on the CPU unasked (pass device="cpu" for that)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 def auto_config(**overrides) -> PipelineConfig:
     """PipelineConfig for the current host: the CUDA warp kernel when a
     GPU is present, the portable gather warp elsewhere."""

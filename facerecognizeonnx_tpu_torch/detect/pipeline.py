@@ -1,7 +1,8 @@
 """Batched detection: decoded anchors → fixed-K Detections.
 
 Port of `facerecognizeonnx_tpu/detect/pipeline.py` (`postprocess`,
-`detect_batch_program`), with the batch dimension written out:
+`detect_program`, `detect_batch_program`), with the batch dimension
+written out:
 
   - strict `score > threshold` filter
   - coords rescaled by /scale to the original image
@@ -17,7 +18,7 @@ import torch
 
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
 from facerecognizeonnx_tpu_torch.detect.decode import decode_outputs
-from facerecognizeonnx_tpu_torch.ops.image import normalize_to_rgb
+from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.ops.nms import gather_rows, nms_fixed
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.types import Detections
@@ -35,14 +36,19 @@ def postprocess(
     """Decoded anchors → fixed-K Detections.
 
     scores (B, N), boxes (B, N, 4), kps (B, N, 5, 2) in letterboxed
-    pixels; returns (B, max_faces) slots.
+    pixels; scale is one float or a (B,) float32 tensor of per-frame
+    letterbox scales (coords are divided by it BEFORE NMS, as in the
+    reference); returns (B, max_faces) slots.
     """
     score_thr = cfg.score_threshold if score_threshold is None else score_threshold
     nms_thr = cfg.nms_threshold if nms_threshold is None else nms_threshold
     ranked = torch.where(scores > score_thr, scores, torch.full_like(scores, -1.0))
     top_scores, idx = topk_stable(ranked, cfg.pre_nms_topk)
-    top_boxes = gather_rows(boxes, idx) * (1.0 / scale)
-    top_kps = gather_rows(kps, idx) * (1.0 / scale)
+    inv = inv_k = 1.0 / scale
+    if isinstance(scale, torch.Tensor):  # per-frame (B,) scales
+        inv, inv_k = inv.reshape(-1, 1, 1), inv.reshape(-1, 1, 1, 1)
+    top_boxes = gather_rows(boxes, idx) * inv
+    top_kps = gather_rows(kps, idx) * inv_k
     valid = top_scores > score_thr
 
     # top-k output is already descending → skip the re-sort in NMS
@@ -63,6 +69,27 @@ def postprocess(
         kps=torch.where(out_valid[..., None, None], gather_rows(kps_s, sel), zero),
         valid=out_valid,
     )
+
+
+def detect_program(
+    model,
+    image_u8: torch.Tensor,
+    cfg: PipelineConfig,
+    score_threshold: Optional[float] = None,
+    nms_threshold: Optional[float] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Detections:
+    """Full single-image detect: (H, W, 3) BGR uint8 → unbatched
+    Detections in original-image pixels (letterbox on the image's
+    device, /scale before NMS)."""
+    dtype = cfg.torch_compute_dtype if compute_dtype is None else compute_dtype
+    padded, scale = letterbox(image_u8, cfg.det_input_size)
+    x = normalize_to_rgb(padded, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)[None]
+    scores, boxes, kps = decode_outputs(
+        model(x, dtype), cfg.det_input_size, cfg.num_anchors
+    )
+    dets = postprocess(scores, boxes, kps, scale, cfg, score_threshold, nms_threshold)
+    return Detections(*(t[0] for t in dets))
 
 
 def detect_batch_program(

@@ -2,7 +2,8 @@
 
 Port of `facerecognizeonnx_tpu/embed/pipeline.py`: K faces of each of B
 frames align in one warp (the crop fallback for degenerate landmark fits
-is an alternative affine matrix, so both share the warp), then embed.
+is an alternative affine matrix, so both share the warp), then embed;
+and `embed_simple_program`, the whole-image embed.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
 from facerecognizeonnx_tpu_torch.models import recognizer_apply
 from facerecognizeonnx_tpu_torch.models.layers import l2_normalize
-from facerecognizeonnx_tpu_torch.ops.image import normalize_to_rgb
+from facerecognizeonnx_tpu_torch.ops.image import normalize_to_rgb, resize_bilinear
 from facerecognizeonnx_tpu_torch.ops.umeyama import ARCFACE_DST_5PTS, umeyama
 from facerecognizeonnx_tpu_torch.ops.warp import crop_resize_affine, warp_affine_batch
 from facerecognizeonnx_tpu_torch.ops.warp_cuda import warp_affine_xm
@@ -69,6 +70,19 @@ def align_faces_batch(
     return crops
 
 
+def align_faces(
+    image_u8: torch.Tensor,
+    kps: torch.Tensor,
+    boxes: torch.Tensor,
+    cfg: PipelineConfig,
+) -> torch.Tensor:
+    """Align K faces of one image → (K, 112, 112, 3) raw BGR crops.
+
+    kps (K, 5, 2); boxes (K, 4) x1,y1,x2,y2, used only by the crop
+    fallback when the similarity fit is degenerate."""
+    return align_faces_batch(image_u8[None], kps[None], boxes[None], cfg)[0]
+
+
 def embed_crops(
     model,
     crops: torch.Tensor,
@@ -103,3 +117,16 @@ def embed_program(
     )[0]
     feats = embed_crops(model, crops, cfg, compute_dtype, normalized=True)
     return feats * valid[:, None].to(feats.dtype)
+
+
+def embed_simple_program(
+    model,
+    image_u8: torch.Tensor,
+    cfg: PipelineConfig,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """extractFeatureSimple: whole image → bilinear resize to 112 →
+    embed → (512,) feature (no detection or alignment)."""
+    size = cfg.rec_input_size
+    resized = resize_bilinear(image_u8, size, size)
+    return embed_crops(model, resized[None], cfg, compute_dtype)[0]

@@ -16,3 +16,7 @@ class InvalidInputError(FrtError, ValueError):
 
 class KernelError(FrtError, RuntimeError):
     """A hand-written CUDA kernel failed to build, load or launch."""
+
+
+class GalleryError(FrtError, ValueError):
+    """Gallery bank misuse (dim mismatch, missing file)."""

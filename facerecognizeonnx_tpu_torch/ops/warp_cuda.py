@@ -1,68 +1,72 @@
-"""The alignment warp on the GPU: a hand-written CUDA kernel (csrc/warp_xm.cu)
-and its plain-torch version.
+"""The alignment warp on the GPU: hand-written CUDA kernels (csrc/warp_xm.cu,
+csrc/warp_ym.cu) and their plain-torch versions.
 
-Port of `facerecognizeonnx_tpu/ops/warp_pallas.py` x-major path
-(`_warp_affine_pallas_xm` + `_kernel_xm`). What it computes, per face:
+Port of `facerecognizeonnx_tpu/ops/warp_pallas.py`: the x-major path
+(`_warp_affine_pallas_xm` + `_kernel_xm`) and the y-major path
+(`warp_affine_pallas(layout="ymajor")` + `_kernel`). What both compute,
+per face:
 
   1. a 4-level mip pyramid of each frame: level l = 2x2 average of the
      UNROUNDED level l-1 (odd edges dropped), each level stored rounded
      (half-to-even) — every value is an integer 0..255, so the pyramid
-     is uint8, exact;
+     is uint8, exact, and one pyramid serves both layouts;
   2. the inverse affine, a level chosen from its source extent against
-     COVER=110 px, and a window origin x_lo = floor(x_min/16)·16,
-     y_lo = floor(y_min/128)·128 (clipped to the canvas); taps outside
-     the 128(x)×256(y) window read zero, so the origin rounding is part
-     of the result for faces larger than level-3 coverage;
-  3. the six float parameters in the kernel's fixed point (2^20 for the
-     coefficients, 2^16 for the translations, after nan_to_num and
-     clips to ±2000 / ±30000);
+     COVER=110 px, and an aligned window origin clipped to the
+     reference's zero canvas; taps outside the window read zero, so the
+     origin rounding is part of the result for faces larger than
+     level-3 coverage:
+       x-major: window 128 (x) × 256 (y), x_lo = floor(x_min/16)·16,
+                y_lo = floor(y_min/128)·128;
+       y-major: window 256 (x) × 128 (y), x_lo = floor(x_min/128)·128,
+                y_lo = floor(y_min/16)·16;
+  3. the six float parameters: x-major in the kernel's fixed point (2^20
+     for the coefficients, 2^16 for the translations, after nan_to_num
+     and clips to ±2000 / ±30000); y-major as plain float32;
   4. per output pixel a bilinear resample: y hat weights rounded to
-     bf16, x hat weights in f32, f32 sums y first;
-  5. optionally the epilogue (channel 2-c, (s-mean)/scale, bf16) and the
-     valid-slot skip (zeros, no reads).
+     bf16, then the x-pass in f32 (or, y-major with xpass_bf16, in bf16
+     with every rounding point of the TPU kernel);
+  5. x-major only: the epilogue (channel 2-c, (s-mean)/scale, bf16) and
+     the valid-slot skip (zeros, no reads).
 
-`warp_affine_xm` launches the kernel for CUDA tensors and counts its
-launches in `warp_affine_xm.launches`; for CPU tensors it runs
-`warp_affine_xm_reference`, the plain version. A CUDA tensor never takes
-the plain version: the kernel launches or the wrapper raises.
+`warp_affine_xm` / `warp_affine_ym` launch their kernels for CUDA
+tensors and count the launches in `warp_affine_xm.launches` /
+`warp_affine_ym.launches`; for CPU tensors they run the plain versions
+`warp_affine_xm_reference` / `warp_affine_ym_reference`. A CUDA tensor
+never takes a plain version: the kernel launches or the wrapper raises.
+`warp_affine` is the counterpart of `warp_affine_pallas` and
+dispatches on `layout`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from facerecognizeonnx_tpu_torch.errors import InvalidInputError, KernelError
+from facerecognizeonnx_tpu_torch.ops import _nvcc
 from facerecognizeonnx_tpu_torch.ops.warp import invert_affine
 
 NUM_LEVELS = 4
 OUT = 112
 COVER = 110.0
-WIN_X, WIN_Y = 128, 256  # window: x extent, y extent
-ALIGN_X, ALIGN_Y = 16, 128  # window origin rounding
-PAD_W, PAD_H = 656, 768  # the reference's zero canvas (x, y)
+PAD_W, PAD_H = 656, 768  # the x-major reference's zero canvas (x, y)
+WIN_X, WIN_Y = 128, 256  # x-major window: x extent, y extent
+ALIGN_X, ALIGN_Y = 16, 128  # x-major window origin rounding
 MAX_X_LO = float(((PAD_W - WIN_X) // ALIGN_X) * ALIGN_X)  # 528
 MAX_Y_LO = float(((PAD_H - WIN_Y) // ALIGN_Y) * ALIGN_Y)  # 512
-MAX_W, MAX_H = PAD_W - ALIGN_X, PAD_H - ALIGN_Y  # 640, 640
+YM_PAD_W, YM_PAD_H = 768, 656  # the y-major reference's zero canvas (x, y)
+YM_WIN_X, YM_WIN_Y = 256, 128
+YM_ALIGN_X, YM_ALIGN_Y = 128, 16
+YM_MAX_X_LO = float(((YM_PAD_W - YM_WIN_X) // YM_ALIGN_X) * YM_ALIGN_X)  # 512
+YM_MAX_Y_LO = float(((YM_PAD_H - YM_WIN_Y) // YM_ALIGN_Y) * YM_ALIGN_Y)  # 528
+MAX_W, MAX_H = 640, 640  # both canvases hold frames up to 640 x 640
 FP_COEF = float(1 << 20)
 FP_TX = float(1 << 16)
 N_PARAMS = 9  # level, x_lo, y_lo, a, b, c, d, tx_loc, ty_loc
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "warp_xm.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+LAYOUTS = ("ymajor", "xmajor")
 
 
 # ---------------------------------------------------------------- shared parts
@@ -73,12 +77,14 @@ def level_sizes(H: int, W: int):
     return [(H >> lvl, W >> lvl) for lvl in range(NUM_LEVELS)]
 
 
-def build_pyramid_xm(frames_u8: torch.Tensor) -> torch.Tensor:
+def build_pyramid(frames_u8: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) uint8 → (B, P) uint8: the 4 levels, each (H_l, W_l, 3)
     row-major, concatenated per frame (P = Σ 3·H_l·W_l).
 
     Level l pools the unrounded float level l-1; every partial sum is a
-    dyadic fraction with few bits, so it is exact in f32 in any order."""
+    dyadic fraction with few bits, so it is exact in f32 in any order.
+    The values are those of both reference pyramids (`build_pyramid_xm`
+    and `build_pyramid_cf`), without their zero canvas."""
     B = frames_u8.shape[0]
     level = frames_u8.permute(0, 3, 1, 2).to(torch.float32)
     parts = []
@@ -91,11 +97,11 @@ def build_pyramid_xm(frames_u8: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def face_params_xm(Ms: torch.Tensor) -> torch.Tensor:
-    """(B, K, 2, 3) forward affines → (B·K, 9) float32 per-face table:
-    level, x_lo, y_lo, then a, b, c, d, tx_loc, ty_loc — the inverse
-    affine at the chosen level in window-local coordinates, in the same
-    f32 ops and fixed-point rounding as `_warp_affine_pallas_xm`."""
+def _scaled_inverse(Ms: torch.Tensor):
+    """(B, K, 2, 3) forward affines → per face (flat): the pyramid level,
+    the inverse affine at that level (a, b, c, d, tx, ty) and the
+    minimum corner (x_min, y_min) of its source window, in the f32 ops
+    of the reference drivers (shared by both layouts)."""
     Minv = invert_affine(Ms.to(torch.float32)).reshape(-1, 2, 3)
     a, b, tx = Minv[:, 0, 0], Minv[:, 0, 1], Minv[:, 0, 2]
     c, d, ty = Minv[:, 1, 0], Minv[:, 1, 1], Minv[:, 1, 2]
@@ -122,6 +128,16 @@ def face_params_xm(Ms: torch.Tensor) -> torch.Tensor:
         torch.minimum(cf * (OUT - 1), zero) + torch.minimum(df * (OUT - 1), zero) + tyf,
         -big, big,
     )
+    return level, af, bf, cf, df, txf, tyf, x_min, y_min
+
+
+def face_params_xm(Ms: torch.Tensor) -> torch.Tensor:
+    """(B, K, 2, 3) forward affines → (B·K, 9) float32 per-face table for
+    the x-major kernel: level, x_lo, y_lo, then a, b, c, d, tx_loc,
+    ty_loc — the inverse affine at the chosen level in window-local
+    coordinates, in the same f32 ops and fixed-point rounding as
+    `_warp_affine_pallas_xm`."""
+    level, af, bf, cf, df, txf, tyf, x_min, y_min = _scaled_inverse(Ms)
     x_lo = torch.clamp(torch.floor(x_min / ALIGN_X) * ALIGN_X, 0.0, MAX_X_LO)
     y_lo = torch.clamp(torch.floor(y_min / ALIGN_Y) * ALIGN_Y, 0.0, MAX_Y_LO)
 
@@ -138,6 +154,19 @@ def face_params_xm(Ms: torch.Tensor) -> torch.Tensor:
             fixed(txf - x_lo, FP_TX, 30000.0), fixed(tyf - y_lo, FP_TX, 30000.0),
         ],
         dim=-1,
+    ).contiguous()
+
+
+def face_params_ym(Ms: torch.Tensor) -> torch.Tensor:
+    """(B, K, 2, 3) forward affines → (B·K, 9) float32 per-face table for
+    the y-major kernel, in the column order of `face_params_xm`: the
+    float32 parameters of `warp_affine_pallas(layout="ymajor")`
+    (`fparams`, no fixed point) with its 128 (x) / 16 (y) origin."""
+    level, af, bf, cf, df, txf, tyf, x_min, y_min = _scaled_inverse(Ms)
+    x_lo = torch.clamp(torch.floor(x_min / YM_ALIGN_X) * YM_ALIGN_X, 0.0, YM_MAX_X_LO)
+    y_lo = torch.clamp(torch.floor(y_min / YM_ALIGN_Y) * YM_ALIGN_Y, 0.0, YM_MAX_Y_LO)
+    return torch.stack(
+        [level, x_lo, y_lo, af, bf, cf, df, txf - x_lo, tyf - y_lo], dim=-1
     ).contiguous()
 
 
@@ -173,24 +202,19 @@ def _finish(s: torch.Tensor, B: int, K: int, epilogue, valid) -> torch.Tensor:
     return s
 
 
-# ---------------------------------------------------------------- plain version
+# ---------------------------------------------------------------- plain versions
 
 
-def resample_xm_reference(
-    pyr: torch.Tensor,
-    prm: torch.Tensor,
-    H: int,
-    W: int,
-    K: int,
-    epilogue: Optional[Tuple[float, float]] = None,
-    valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain-torch version of the kernel, on any device: vectorized gather
-    and arithmetic over a pyramid (`build_pyramid_xm`) and a per-face
-    table (`face_params_xm`) of B frames of H x W and K faces each.
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
 
-    Returns (B, K, 112, 112, 3): raw f32 BGR, or with epilogue=(mean,
-    scale) bf16 normalized RGB. valid (B, K): invalid slots are zeros."""
+
+def _resample_reference(pyr, prm, H, W, K, win_x, win_y, xpass_bf16=False):
+    """The kernels' arithmetic in plain torch, on any device: vectorized
+    gather over a pyramid (`build_pyramid`) and a per-face table
+    (`face_params_xm` / `face_params_ym`) of B frames of H x W and K
+    faces each, with a (win_x, win_y) window. Returns (N, 112, 112, 3)
+    f32 sums."""
     B = pyr.shape[0]
     N = B * K
     dev = pyr.device
@@ -213,8 +237,8 @@ def resample_xm_reference(
 
     ii = torch.arange(OUT, dtype=torch.float32, device=dev)[:, None]
     jj = torch.arange(OUT, dtype=torch.float32, device=dev)[None, :]
-    lx = (a * jj + b * ii + tx).clamp(-2.0, WIN_X + 1.0)  # (N, 112, 112)
-    ly = (c * jj + d * ii + ty).clamp(-2.0, WIN_Y + 1.0)
+    lx = (a * jj + b * ii + tx).clamp(-2.0, win_x + 1.0)  # (N, 112, 112)
+    ly = (c * jj + d * ii + ty).clamp(-2.0, win_y + 1.0)
     x0 = torch.floor(lx)
     y0 = torch.floor(ly)
     chan = torch.arange(3, device=dev)
@@ -226,12 +250,11 @@ def resample_xm_reference(
         t = torch.zeros_like(s)
         for dy in (0, 1):
             yw = y0 + dy
-            wy = torch.clamp_min(1.0 - (ly - yw).abs(), 0.0)
-            wy = wy.to(torch.bfloat16).to(torch.float32)
+            wy = _bf16(torch.clamp_min(1.0 - (ly - yw).abs(), 0.0))
             gx = x_lo + xw.long()
             gy = y_lo + yw.long()
             ok = (
-                (xw >= 0) & (xw < WIN_X) & (yw >= 0) & (yw < WIN_Y)
+                (xw >= 0) & (xw < win_x) & (yw >= 0) & (yw < win_y)
                 & (gx < wl) & (gy < hl)
             )
             idx = base + (gy.clamp_min(0) * wl + gx.clamp_min(0)) * 3
@@ -239,8 +262,40 @@ def resample_xm_reference(
             px = pyr[idx[..., None] + chan].to(torch.float32)
             px = torch.where(ok[..., None], px, torch.zeros_like(px))
             t = t + wy[..., None] * px
-        s = s + t * wx[..., None]
-    return _finish(s, B, K, epilogue, valid)
+        if xpass_bf16:
+            s = s + _bf16(_bf16(t) * _bf16(wx)[..., None])
+        else:
+            s = s + t * wx[..., None]
+    return _bf16(s) if xpass_bf16 else s
+
+
+def resample_xm_reference(
+    pyr: torch.Tensor,
+    prm: torch.Tensor,
+    H: int,
+    W: int,
+    K: int,
+    epilogue: Optional[Tuple[float, float]] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain-torch version of the x-major kernel, on any device: pyramid
+    (`build_pyramid`) and per-face table (`face_params_xm`) of B frames
+    of H x W and K faces each → (B, K, 112, 112, 3): raw f32 BGR, or
+    with epilogue=(mean, scale) bf16 normalized RGB. valid (B, K):
+    invalid slots are zeros."""
+    s = _resample_reference(pyr, prm, H, W, K, WIN_X, WIN_Y)
+    return _finish(s, pyr.shape[0], K, epilogue, valid)
+
+
+def resample_ym_reference(
+    pyr: torch.Tensor, prm: torch.Tensor, H: int, W: int, K: int,
+    xpass_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain-torch version of the y-major kernel, on any device: pyramid
+    (`build_pyramid`) and per-face table (`face_params_ym`) →
+    (B, K, 112, 112, 3) raw f32 BGR."""
+    s = _resample_reference(pyr, prm, H, W, K, YM_WIN_X, YM_WIN_Y, xpass_bf16)
+    return _finish(s, pyr.shape[0], K, None, None)
 
 
 def warp_affine_xm_reference(
@@ -249,65 +304,85 @@ def warp_affine_xm_reference(
     epilogue: Optional[Tuple[float, float]] = None,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The whole warp in plain torch: pyramid, per-face table, resample.
-
-    frames_u8 (B, H, W, 3) uint8, Ms (B, K, 2, 3) → (B, K, 112, 112, 3)."""
+    """The whole x-major warp in plain torch: pyramid, per-face table,
+    resample. frames_u8 (B, H, W, 3) uint8, Ms (B, K, 2, 3) →
+    (B, K, 112, 112, 3)."""
     _check_inputs(frames_u8, Ms, valid)
     _, H, W, _ = frames_u8.shape
     return resample_xm_reference(
-        build_pyramid_xm(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
+        build_pyramid(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
         epilogue, valid,
     )
 
 
-# ---------------------------------------------------------------- the kernel
+def warp_affine_ym_reference(
+    frames_u8: torch.Tensor, Ms: torch.Tensor, xpass_bf16: bool = False
+) -> torch.Tensor:
+    """The whole y-major warp in plain torch. frames_u8 (B, H, W, 3)
+    uint8, Ms (B, K, 2, 3) → (B, K, 112, 112, 3) raw f32 BGR."""
+    _check_inputs(frames_u8, Ms, None)
+    _, H, W, _ = frames_u8.shape
+    return resample_ym_reference(
+        build_pyramid(frames_u8), face_params_ym(Ms), H, W, Ms.shape[1], xpass_bf16
+    )
 
-_lib = None
-_lib_lock = threading.Lock()
+
+# ---------------------------------------------------------------- the kernels
+
+
+def _bind_xm(lib: ctypes.CDLL) -> None:
+    lib.warp_xm_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.warp_xm_launch.restype = ctypes.c_int
+    lib.warp_xm_error_string.argtypes = [ctypes.c_int]
+    lib.warp_xm_error_string.restype = ctypes.c_char_p
+
+
+def _bind_ym(lib: ctypes.CDLL) -> None:
+    lib.warp_ym_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.warp_ym_launch.restype = ctypes.c_int
+    lib.warp_ym_error_string.argtypes = [ctypes.c_int]
+    lib.warp_ym_error_string.restype = ctypes.c_char_p
 
 
 def build_library() -> Tuple[ctypes.CDLL, str]:
     """Compile csrc/warp_xm.cu with nvcc for sm_90a (once per source and
-    flags, into the package's _build directory) and load it.
+    flags) and load it. Returns (library, nvcc's -Xptxas -v output)."""
+    return _nvcc.build_library("warp_xm.cu", _bind_xm)
 
-    Returns (library, nvcc's output) — the output holds -Xptxas -v's
-    register and spill report, empty when the library was already built.
-    """
-    global _lib
-    from torch.utils.cpp_extension import CUDA_HOME
 
-    with _lib_lock:
-        if _lib is not None:
-            return _lib, ""
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        so_path = BUILD_DIR / f"warp_xm_{tag}.so"
-        log = ""
-        if not so_path.exists():
-            if CUDA_HOME is None:
-                raise KernelError("no CUDA toolkit found to build csrc/warp_xm.cu")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-                   "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise KernelError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(str(so_path))
-        lib.warp_xm_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.warp_xm_launch.restype = ctypes.c_int
-        lib.warp_xm_error_string.argtypes = [ctypes.c_int]
-        lib.warp_xm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib, log
+def build_library_ym() -> Tuple[ctypes.CDLL, str]:
+    """Compile and load csrc/warp_ym.cu, as `build_library` does."""
+    return _nvcc.build_library("warp_ym.cu", _bind_ym)
+
+
+def _check_table(pyr, prm, H, W, K):
+    B = pyr.shape[0]
+    N = B * K
+    dev = pyr.device
+    if dev.type != "cuda":
+        raise InvalidInputError(f"the warp kernels take CUDA tensors, got {dev}")
+    frame_bytes = sum(3 * h * w for h, w in level_sizes(H, W))
+    if (
+        pyr.dtype != torch.uint8 or tuple(pyr.shape) != (B, frame_bytes)
+        or not pyr.is_contiguous()
+    ):
+        raise InvalidInputError(f"pyramid must be contiguous uint8 ({B}, {frame_bytes})")
+    if (
+        prm.dtype != torch.float32 or tuple(prm.shape) != (N, N_PARAMS)
+        or not prm.is_contiguous() or prm.device != dev
+    ):
+        raise InvalidInputError(f"face table must be contiguous float32 ({N}, {N_PARAMS})")
+    if N > 65535:
+        raise InvalidInputError(f"at most 65535 faces per launch, got {N}")
+    return B, N, dev
 
 
 def resample_xm(
@@ -322,24 +397,7 @@ def resample_xm(
     """Launch csrc/warp_xm.cu on CUDA tensors: the kernel counterpart of
     `resample_xm_reference`, same arguments and output. Counts the
     launch in `warp_affine_xm.launches`."""
-    B = pyr.shape[0]
-    N = B * K
-    dev = pyr.device
-    if dev.type != "cuda":
-        raise InvalidInputError(f"the warp kernel takes CUDA tensors, got {dev}")
-    frame_bytes = sum(3 * h * w for h, w in level_sizes(H, W))
-    if (
-        pyr.dtype != torch.uint8 or tuple(pyr.shape) != (B, frame_bytes)
-        or not pyr.is_contiguous()
-    ):
-        raise InvalidInputError(f"pyramid must be contiguous uint8 ({B}, {frame_bytes})")
-    if (
-        prm.dtype != torch.float32 or tuple(prm.shape) != (N, N_PARAMS)
-        or not prm.is_contiguous() or prm.device != dev
-    ):
-        raise InvalidInputError(f"face table must be contiguous float32 ({N}, {N_PARAMS})")
-    if N > 65535:
-        raise InvalidInputError(f"at most 65535 faces per launch, got {N}")
+    B, N, dev = _check_table(pyr, prm, H, W, K)
     valid_u8 = None
     if valid is not None:
         if valid.numel() != N or valid.device != dev:
@@ -367,6 +425,29 @@ def resample_xm(
     return out
 
 
+def resample_ym(
+    pyr: torch.Tensor, prm: torch.Tensor, H: int, W: int, K: int,
+    xpass_bf16: bool = False,
+) -> torch.Tensor:
+    """Launch csrc/warp_ym.cu on CUDA tensors: the kernel counterpart of
+    `resample_ym_reference`, same arguments and output. Counts the
+    launch in `warp_affine_ym.launches`."""
+    B, N, dev = _check_table(pyr, prm, H, W, K)
+    out = torch.empty((B, K, OUT, OUT, 3), dtype=torch.float32, device=dev)
+    lib, _ = build_library_ym()
+    with torch.cuda.device(dev):
+        rc = lib.warp_ym_launch(
+            pyr.data_ptr(), prm.data_ptr(), out.data_ptr(), N, K, H, W,
+            int(bool(xpass_bf16)), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise KernelError(
+            f"warp_ym launch failed: {lib.warp_ym_error_string(rc).decode()}"
+        )
+    warp_affine_ym.launches += 1
+    return out
+
+
 def warp_affine_xm(
     frames_u8: torch.Tensor,
     Ms: torch.Tensor,
@@ -385,9 +466,60 @@ def warp_affine_xm(
     _check_inputs(frames_u8, Ms, valid)
     _, H, W, _ = frames_u8.shape
     return resample_xm(
-        build_pyramid_xm(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
+        build_pyramid(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
         epilogue, valid,
     )
 
 
+def warp_affine_ym(
+    frames_u8: torch.Tensor, Ms: torch.Tensor, xpass_bf16: bool = False
+) -> torch.Tensor:
+    """(B, H, W, 3) uint8 frames + (B, K, 2, 3) forward affines →
+    (B, K, 112, 112, 3) raw f32 BGR crops through the y-major window.
+
+    CUDA tensors launch csrc/warp_ym.cu (and count the launch); CPU
+    tensors run `warp_affine_ym_reference`."""
+    if frames_u8.device.type == "cpu":
+        return warp_affine_ym_reference(frames_u8, Ms, xpass_bf16)
+    _check_inputs(frames_u8, Ms, None)
+    _, H, W, _ = frames_u8.shape
+    return resample_ym(
+        build_pyramid(frames_u8), face_params_ym(Ms), H, W, Ms.shape[1], xpass_bf16
+    )
+
+
+def warp_affine(
+    frames_u8: torch.Tensor,
+    Ms: torch.Tensor,
+    out_size: int = OUT,
+    xpass_bf16: bool = False,
+    unroll: int = 1,
+    layout: str = "ymajor",
+    epilogue: Optional[Tuple[float, float]] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The counterpart of `warp_affine_pallas`, with its default layout:
+    (B, H, W, 3) uint8 + (B, K, 2, 3) forward affines →
+    (B, K, 112, 112, 3) crops (zero border).
+
+    layout="xmajor" runs `warp_affine_xm` (epilogue and valid as there);
+    layout="ymajor" runs `warp_affine_ym` (raw f32 BGR only), whose
+    xpass_bf16 rounds the x-pass as the TPU kernel's bf16 option does.
+    As in the reference, xpass_bf16 applies to the y-major layout only;
+    unroll changes only the TPU kernel's schedule, so here it is
+    validated and changes nothing."""
+    if out_size != OUT:
+        raise InvalidInputError(f"the warp kernels are specialized to {OUT} output")
+    if int(unroll) < 1:
+        raise InvalidInputError(f"unroll must be >= 1, got {unroll}")
+    if layout == "xmajor":
+        return warp_affine_xm(frames_u8, Ms, epilogue, valid)
+    if layout != "ymajor":
+        raise InvalidInputError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if epilogue is not None or valid is not None:
+        raise InvalidInputError("the y-major warp returns raw BGR only (no epilogue or valid)")
+    return warp_affine_ym(frames_u8, Ms, xpass_bf16)
+
+
 warp_affine_xm.launches = 0
+warp_affine_ym.launches = 0

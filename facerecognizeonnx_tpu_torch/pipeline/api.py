@@ -1,0 +1,276 @@
+"""The reference-compatible component API on torch.
+
+Port of `facerecognizeonnx_tpu/pipeline/api.py`:
+
+  FaceDetector:   load_model/loadModel, detect, detect_raw, detect_batch
+  FaceRecognizer: load_model/loadModel, extract_feature(s)/extractFeature,
+                  extract_feature_simple/extractFeatureSimple,
+                  compare_faces/compareFaces
+
+The same defaults (score 0.5, NMS 0.4, match threshold 0.6 on the
+(cos+1)/2 scale, 640/112 inputs, 512-d features) and the same guard
+semantics (empty results on a missing model or image; load_model
+returns False on a missing or corrupt file). Inputs and outputs are
+numpy on the host; each method runs its program on `device` (the card
+unless the caller asks for the CPU). PyTorch runs eagerly, so there is
+no per-shape compile cache.
+
+Not ported yet, and raising NotImplementedError: `.onnx` weights
+(ROADMAP.md Queue A item 15), w8a8 `quantize` (item 12), `detect_files`
+and `host_letterbox=True` (item 18: the native image runtime).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from facerecognizeonnx_tpu_torch import bridge
+from facerecognizeonnx_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig, resolve_device
+from facerecognizeonnx_tpu_torch.detect.decode import decode_outputs
+from facerecognizeonnx_tpu_torch.detect.pipeline import detect_program, postprocess
+from facerecognizeonnx_tpu_torch.embed.pipeline import embed_program, embed_simple_program
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
+from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER, arcface, scrfd
+from facerecognizeonnx_tpu_torch.models.arcface import IRESNET_SPECS
+from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
+from facerecognizeonnx_tpu_torch.types import Detections, FaceBox, face_boxes_to_arrays
+from facerecognizeonnx_tpu_torch.utils import checkpoint
+
+UNPORTED_ONNX = "ONNX weights are not ported yet (ROADMAP.md Queue A item 15)"
+UNPORTED_QUANT = "w8a8 recognizer quantization is not ported yet (ROADMAP.md Queue A item 12)"
+UNPORTED_NATIVE = (
+    "the native host image runtime (host_letterbox, detect_files) is not ported "
+    "yet (ROADMAP.md Queue A item 18)"
+)
+
+
+def _load_tree(path: Optional[str], init_fn):
+    """Param tree from `.npz`, or init_fn() when path is None. Raises
+    ModelLoadError on a missing or corrupt file."""
+    if path is None:
+        return init_fn()
+    if path.endswith(".onnx"):
+        raise NotImplementedError(UNPORTED_ONNX)
+    try:
+        return checkpoint.load_params(path)
+    except (OSError, ValueError) as e:
+        raise ModelLoadError(f"cannot load weights {path!r}: {e}") from e
+
+
+def _to_module(tree, device) -> torch.nn.Module:
+    try:
+        return bridge.params_from_numpy(tree, device)
+    except (KeyError, TypeError, ValueError) as e:
+        raise ModelLoadError(f"weights do not fit the model: {e!r}") from e
+
+
+def _int_rects(faces: List[FaceBox]) -> List[FaceBox]:
+    """The reference truncates rect coords to int."""
+    for f in faces:
+        x1, y1 = int(f.box[0]), int(f.box[1])
+        x2, y2 = int(f.box[0] + f.box[2]), int(f.box[1] + f.box[3])
+        f.box = (x1, y1, x2 - x1, y2 - y1)
+    return faces
+
+
+class FaceDetector:
+    """SCRFD face detector."""
+
+    def __init__(self, config: PipelineConfig = DEFAULT_CONFIG, device="cuda"):
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.params = None  # the SCRFD module, once loaded
+
+    def load_model(self, model_path: Optional[str] = None) -> bool:
+        """Weights from `.npz` (either package's checkpoint format), or
+        with model_path=None a random init from `cfg.seed`
+        (`bridge.init_params_numpy`, whose values differ from the JAX
+        package's `jax.random` init). BatchNorms are folded. False on a
+        missing or corrupt file."""
+        try:
+            tree = _load_tree(
+                model_path,
+                lambda: bridge.init_params_numpy(self.cfg.scrfd_variant, seed=self.cfg.seed),
+            )
+            model = _to_module(tree, self.device)
+        except ModelLoadError as e:
+            print(f"Error loading model: {e}")
+            return False
+        if model.stem.bn is not None:
+            model = scrfd.fold_inference_params(model)
+        self.params = model
+        print("Face detector model loaded successfully!")
+        print(f"Using input size: {self.cfg.det_input_size}x{self.cfg.det_input_size}")
+        return True
+
+    loadModel = load_model
+
+    def detect(
+        self,
+        image: np.ndarray,
+        score_threshold: Optional[float] = None,
+        nms_threshold: Optional[float] = None,
+    ) -> List[FaceBox]:
+        """BGR uint8 (H, W, 3) → FaceBox list in original pixel coords,
+        rects truncated to int. Empty on a missing model or image."""
+        if self.params is None:
+            print("Model not loaded!")
+            return []
+        if image is None or image.size == 0 or image.ndim != 3:
+            print("Input image is empty!")
+            return []
+        dets = self.detect_raw(image, score_threshold, nms_threshold)
+        return _int_rects(dets.to_face_boxes())
+
+    def detect_raw(
+        self,
+        image: np.ndarray,
+        score_threshold: Optional[float] = None,
+        nms_threshold: Optional[float] = None,
+    ) -> Detections:
+        """Full-precision fixed-K Detections (tensors on the device)."""
+        if self.cfg.host_letterbox:
+            raise NotImplementedError(UNPORTED_NATIVE)
+        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        with torch.no_grad():
+            return detect_program(self.params, img, self.cfg, score_threshold, nms_threshold)
+
+    def detect_batch(self, images: Sequence[np.ndarray]) -> List[List[FaceBox]]:
+        """Batched detect: same-shaped BGR frames run as one batch
+        (letterbox + detect on the device); mixed shapes bucket by shape.
+        A FaceBox list per image, `detect(img)` semantics (the per-image
+        scale divides before NMS)."""
+        if self.params is None:
+            print("Model not loaded!")
+            return [[] for _ in images]
+        results: List[List[FaceBox]] = [[] for _ in images]
+        buckets: dict = {}
+        for i, img in enumerate(images):
+            if img is None or img.size == 0 or img.ndim != 3:
+                continue
+            buckets.setdefault(img.shape, []).append(i)
+        cfg = self.cfg
+        dtype = cfg.torch_compute_dtype
+        for idxs in buckets.values():
+            frames = torch.from_numpy(np.stack([images[i] for i in idxs])).to(self.device)
+            with torch.no_grad():
+                padded = []
+                for f in frames:
+                    p, scale = letterbox(f, cfg.det_input_size)
+                    padded.append(p)
+                x = normalize_to_rgb(
+                    torch.stack(padded), cfg.pixel_mean, cfg.pixel_scale, dtype=dtype
+                )
+                scores, boxes, kps = decode_outputs(
+                    self.params(x, dtype), cfg.det_input_size, cfg.num_anchors
+                )
+                scales = torch.full((len(idxs),), scale, dtype=torch.float32,
+                                    device=self.device)
+                dets = postprocess(scores, boxes, kps, scales, cfg)
+            for row, i in enumerate(idxs):
+                results[i] = _int_rects(Detections(*(t[row] for t in dets)).to_face_boxes())
+        return results
+
+    def detect_files(self, paths, batch_size: int = 32, threads: int = 1):
+        raise NotImplementedError(UNPORTED_NATIVE)
+
+
+class FaceRecognizer:
+    """ArcFace embedder + comparator (IResNet family)."""
+
+    def __init__(self, config: PipelineConfig = DEFAULT_CONFIG, device="cuda"):
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.params = None  # the IResNet module, once loaded
+
+    def load_model(self, model_path: Optional[str] = None) -> bool:
+        """Weights from `.npz` (either package's checkpoint format), or
+        with model_path=None a random init from `cfg.seed + 1`
+        (`bridge.init_params_numpy`, whose values differ from the JAX
+        package's `jax.random` init). Post-conv BNs are folded. False on
+        a missing or corrupt file."""
+        if self.cfg.rec_arch not in IRESNET_SPECS:
+            raise NotImplementedError(UNPORTED_RECOGNIZER)
+        try:
+            tree = _load_tree(
+                model_path,
+                lambda: bridge.init_params_numpy(
+                    self.cfg.rec_arch, seed=self.cfg.seed + 1,
+                    input_size=self.cfg.rec_input_size,
+                    feature_dim=self.cfg.feature_dim,
+                ),
+            )
+            model = _to_module(tree, self.device)
+        except ModelLoadError as e:
+            print(f"Error loading model: {e}")
+            return False
+        if model.features_bn is not None:
+            model = arcface.fold_inference_params(model)
+        self.params = model
+        print("Face recognizer model loaded successfully!")
+        print(f"Using input size: {self.cfg.rec_input_size}x{self.cfg.rec_input_size}")
+        if self.cfg.recognizer_quant == "w8a8":
+            self.quantize()
+        return True
+
+    loadModel = load_model
+
+    def quantize(self, calib_crops: Optional[np.ndarray] = None, min_channels: int = 0):
+        raise NotImplementedError(UNPORTED_QUANT)
+
+    def extract_feature(self, image: np.ndarray, face: FaceBox) -> np.ndarray:
+        """Aligned 512-d L2-normalized feature for one face; an empty
+        array on failure."""
+        feats = self.extract_features(image, [face])
+        return feats[0] if len(feats) else np.zeros(0, np.float32)
+
+    extractFeature = extract_feature
+
+    def extract_features(self, image: np.ndarray, faces: Sequence[FaceBox]) -> np.ndarray:
+        """All faces of a frame aligned and embedded in one batch →
+        (len(faces), 512); the faces fill a power-of-two bucket of ≥ 8
+        slots, as in the reference package."""
+        if self.params is None:
+            print("Model not loaded!")
+            return np.zeros((0, 512), np.float32)
+        if image is None or image.size == 0 or not faces:
+            print("Input image is empty!")
+            return np.zeros((0, 512), np.float32)
+        k_bucket = max(8, 1 << (len(faces) - 1).bit_length())
+        dets = face_boxes_to_arrays(list(faces), k_bucket)
+        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        with torch.no_grad():
+            feats = embed_program(
+                self.params, img, dets.kps.to(self.device), dets.boxes.to(self.device),
+                dets.valid.to(self.device), self.cfg,
+            )
+        return feats.cpu().numpy()[: len(faces)]
+
+    def extract_feature_simple(self, image: np.ndarray) -> np.ndarray:
+        """Whole-image resize → embed, no detection or alignment."""
+        if self.params is None:
+            print("Model not loaded!")
+            return np.zeros(0, np.float32)
+        if image is None or image.size == 0:
+            print("Input image is empty!")
+            return np.zeros(0, np.float32)
+        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        with torch.no_grad():
+            return embed_simple_program(self.params, img, self.cfg).cpu().numpy()
+
+    extractFeatureSimple = extract_feature_simple
+
+    @staticmethod
+    def compare_faces(feature1, feature2) -> float:
+        """(dot+1)/2 similarity; 0.0 on a size mismatch or an empty
+        feature, as the reference guards."""
+        f1 = np.asarray(feature1, np.float32).ravel()
+        f2 = np.asarray(feature2, np.float32).ravel()
+        if f1.size != f2.size or f1.size == 0:
+            return 0.0
+        return float((np.dot(f1, f2) + 1.0) / 2.0)
+
+    compareFaces = compare_faces

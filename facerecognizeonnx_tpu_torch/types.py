@@ -81,3 +81,24 @@ class Detections(NamedTuple):
                 )
             )
         return out
+
+
+def face_boxes_to_arrays(faces, max_faces: int) -> Detections:
+    """Pack a FaceBox list into fixed-shape host tensors (the inverse of
+    `Detections.to_face_boxes`): (max_faces, ...) slots, the first
+    len(faces) valid."""
+    boxes = np.zeros((max_faces, 4), np.float32)
+    scores = np.zeros((max_faces,), np.float32)
+    kps = np.zeros((max_faces, 5, 2), np.float32)
+    valid = np.zeros((max_faces,), bool)
+    for i, f in enumerate(faces[:max_faces]):
+        boxes[i] = (f.x1, f.y1, f.x2, f.y2)
+        scores[i] = f.score
+        kps[i] = f.landmarks
+        valid[i] = True
+    return Detections(
+        boxes=torch.from_numpy(boxes),
+        scores=torch.from_numpy(scores),
+        kps=torch.from_numpy(kps),
+        valid=torch.from_numpy(valid),
+    )

@@ -16,6 +16,8 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.ops.umeyama",
     "facerecognizeonnx_tpu_torch.ops.warp",
     "facerecognizeonnx_tpu_torch.ops.warp_cuda",
+    "facerecognizeonnx_tpu_torch.ops._nvcc",
+    "facerecognizeonnx_tpu_torch.ops.gallery_cuda",
     "facerecognizeonnx_tpu_torch.models",
     "facerecognizeonnx_tpu_torch.models.layers",
     "facerecognizeonnx_tpu_torch.models.scrfd",
@@ -23,8 +25,15 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.detect.decode",
     "facerecognizeonnx_tpu_torch.detect.pipeline",
     "facerecognizeonnx_tpu_torch.embed.pipeline",
+    "facerecognizeonnx_tpu_torch.match",
     "facerecognizeonnx_tpu_torch.match.similarity",
+    "facerecognizeonnx_tpu_torch.match.gallery",
+    "facerecognizeonnx_tpu_torch.utils",
+    "facerecognizeonnx_tpu_torch.utils.checkpoint",
     "facerecognizeonnx_tpu_torch.pipeline.fused",
+    "facerecognizeonnx_tpu_torch.pipeline.api",
+    "facerecognizeonnx_tpu_torch.pipeline.enroll",
+    "facerecognizeonnx_tpu_torch.pipeline.service",
 ]
 
 REPO = Path(__file__).resolve().parent.parent

@@ -78,12 +78,12 @@ def test_scrfd_heads_match_jax(det_params, form):
     x = np.random.default_rng(3).uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
     folded = scrfd.fold_inference_params(det_params)
     if form == "unfolded":
-        model, ref = bridge.params_from_numpy(_np_tree(det_params)), det_params
+        model, ref = bridge.params_from_numpy(_np_tree(det_params), device="cpu"), det_params
     elif form == "jax_folded_tree":
-        model, ref = bridge.params_from_numpy(_np_tree(folded)), folded
+        model, ref = bridge.params_from_numpy(_np_tree(folded), device="cpu"), folded
     else:
         model = t_scrfd.fold_inference_params(
-            bridge.params_from_numpy(_np_tree(det_params))
+            bridge.params_from_numpy(_np_tree(det_params), device="cpu")
         )
         ref = folded
         assert all(u.bn is None for u in model.head_convs)
@@ -108,7 +108,7 @@ def _cos(a, b):
 @pytest.mark.parametrize("folded", [False, True])
 def test_iresnet18_f32_matches_jax(r18_params, folded):
     x = np.random.default_rng(5).uniform(-1, 1, (2, 112, 112, 3)).astype(np.float32)
-    model = bridge.params_from_numpy(_np_tree(r18_params))
+    model = bridge.params_from_numpy(_np_tree(r18_params), device="cpu")
     ref_params = r18_params
     if folded:
         model = t_arcface.fold_inference_params(model)
@@ -125,7 +125,7 @@ def test_iresnet18_f32_matches_jax(r18_params, folded):
 
 def test_iresnet18_bf16_matches_jax(r18_params):
     x = np.random.default_rng(6).uniform(-1, 1, (2, 112, 112, 3)).astype(np.float32)
-    model = bridge.params_from_numpy(_np_tree(r18_params))
+    model = bridge.params_from_numpy(_np_tree(r18_params), device="cpu")
     bf16 = jax.jit(lambda p, v: arcface.apply(p, v, jnp.bfloat16))
     want = np.asarray(bf16(r18_params, jnp.asarray(x)))
     with torch.no_grad():
@@ -136,7 +136,7 @@ def test_iresnet18_bf16_matches_jax(r18_params):
 
 def test_scrfd_bf16_scores_match_jax(det_params):
     x = np.random.default_rng(8).uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
-    model = bridge.params_from_numpy(_np_tree(det_params))
+    model = bridge.params_from_numpy(_np_tree(det_params), device="cpu")
     want = jax.jit(lambda p, v: scrfd.apply(p, v, jnp.bfloat16))(
         det_params, jnp.asarray(x)
     )
@@ -150,7 +150,7 @@ def test_scrfd_bf16_scores_match_jax(det_params):
 def test_bridge_layouts(r18_params):
     """HWIO → OIHW convs, (din, dout) → (dout, din) FC, BN/PReLU as-is."""
     tree = _np_tree(r18_params)
-    model = bridge.params_from_numpy(tree)
+    model = bridge.params_from_numpy(tree, device="cpu")
     np.testing.assert_array_equal(
         model.stem.conv.weight.numpy(), tree["conv1"]["w"].transpose(3, 2, 0, 1)
     )
@@ -165,7 +165,7 @@ def test_bridge_layouts(r18_params):
     np.testing.assert_array_equal(
         model.stem.act.alpha.numpy(), tree["prelu1"]["alpha"]
     )
-    det = bridge.params_from_numpy(bridge.init_params_numpy("500m", seed=2))
+    det = bridge.params_from_numpy(bridge.init_params_numpy("500m", seed=2), device="cpu")
     dw = det.backbone[0].dw.conv
     assert dw.weight.shape == (16, 1, 3, 3) and dw.groups == 16
 
@@ -174,7 +174,7 @@ def test_iresnet_head_flattens_nhwc(r18_params):
     """The FC consumes the NHWC flatten of bn2's output (the JAX row
     order); an NCHW flatten would give another answer."""
     tree = _np_tree(r18_params)
-    model = bridge.params_from_numpy(tree)
+    model = bridge.params_from_numpy(tree, device="cpu")
     x = torch.from_numpy(
         np.random.default_rng(9).uniform(-1, 1, (1, 112, 112, 3)).astype(np.float32)
     )
@@ -206,7 +206,7 @@ def test_init_params_numpy_matches_jax_shapes(arch, det_params, r18_params):
     assert all(np.asarray(a).dtype == np.float32 for a in got_leaves)
     # the trees build modules that run
     with torch.no_grad():
-        model = bridge.params_from_numpy(got)
+        model = bridge.params_from_numpy(got, device="cpu")
         size = 64 if arch == "500m" else 112
         out = model(torch.zeros((1, size, size, 3)))
     assert out is not None
@@ -217,10 +217,20 @@ def test_unported_models_raise():
     tree = bridge.init_params_numpy("500m")
     tree["backbone"][0]["pw"]["w"] = np.zeros((1, 1, 16, 28), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bridge.params_from_numpy(tree)
+        bridge.params_from_numpy(tree, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bridge.init_params_numpy("10g")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bridge.params_from_numpy({"body": {}})
+        bridge.params_from_numpy({"body": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         recognizer_apply(torch.nn.Identity(), torch.zeros(1, 112, 112, 3), torch.float32)
+
+
+def test_bridge_defaults_to_the_card(monkeypatch):
+    """params_from_numpy builds on the card by default: with no CUDA it
+    raises instead of quietly building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = bridge.init_params_numpy("500m", seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.params_from_numpy(tree)
+    assert next(bridge.params_from_numpy(tree, device="cpu").parameters()).device.type == "cpu"

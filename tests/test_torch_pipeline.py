@@ -53,7 +53,10 @@ def setup():
     bank = rng.normal(size=(G_PAD, 512)).astype(np.float32)
     bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
     bank[N_ROWS:] = 0.0
-    models = (bridge.params_from_numpy(det_tree), bridge.params_from_numpy(rec_tree))
+    models = (
+        bridge.params_from_numpy(det_tree, device="cpu"),
+        bridge.params_from_numpy(rec_tree, device="cpu"),
+    )
     return frames, det_tree, rec_tree, bank, models
 
 

@@ -83,7 +83,7 @@ def test_face_levels_cover_0_to_3(case):
 def test_pyramid_equals_jax_levels(case):
     frames, _, _ = case
     B, H, W, _ = frames.shape
-    got = warp_cuda.build_pyramid_xm(torch.from_numpy(frames))
+    got = warp_cuda.build_pyramid(torch.from_numpy(frames))
     want = np.asarray(j_build_pyramid(jnp.asarray(frames))).astype(np.float32)
     assert got.dtype == torch.uint8
     off = 0

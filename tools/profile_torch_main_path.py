@@ -52,10 +52,10 @@ def main() -> int:
     cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
     frames = torch.from_numpy(rng.integers(0, 256, (B, 640, 640, 3), dtype=np.uint8)).to(dev)
     det_tree = detection_bias(bridge.init_params_numpy("500m", seed=0), frames)
-    det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree)).to(dev)
+    det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree, dev))
     rec = arcface.fold_inference_params(
-        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1))
-    ).to(dev)
+        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1), dev)
+    )
     bank = torch.zeros((G_PAD, 512), device=dev)
     bank[:N_ROWS] = torch.nn.functional.normalize(torch.randn(N_ROWS, 512, device=dev), dim=-1)
 
