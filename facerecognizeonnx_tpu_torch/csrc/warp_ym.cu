@@ -1,5 +1,7 @@
 // Face-alignment warp for Hopper (sm_90a), y-major window: per-face bilinear
-// resample of a mip pyramid to 112x112x3 raw BGR crops (float32).
+// resample of a mip pyramid to 112x112x3 raw BGR crops (float32). Level 0 is
+// read from the frames, levels 1-3 from the pyramid launch of csrc/warp_xm.cu,
+// which both layouts share.
 //
 // Replaces the TPU kernel facerecognizeonnx_tpu/ops/warp_pallas.py::_kernel
 // (the y-major v3a layout, launched by warp_affine_pallas(layout="ymajor")).
@@ -64,7 +66,8 @@ __device__ __forceinline__ float bf16_round(float v) {
 
 template <bool kXpassBf16>
 __global__ void __launch_bounds__(THREADS)
-warp_ym_kernel(const uint8_t* __restrict__ pyr,
+warp_ym_kernel(const uint8_t* __restrict__ frames,
+               const uint8_t* __restrict__ upper,
                const float* __restrict__ params,
                float* __restrict__ out,
                int K, int H, int W) {
@@ -79,15 +82,17 @@ warp_ym_kernel(const uint8_t* __restrict__ pyr,
   const float a = prm[3], b = prm[4], c = prm[5], d = prm[6];
   const float tx = prm[7], ty = prm[8];
 
-  // pyramid geometry: levels (H>>l, W>>l, 3) back to back per frame
-  size_t frame_bytes = 0, level_off = 0;
-  for (int l = 0; l < 4; ++l) {
+  // level 0 is the frame; levels 1-3 lie back to back per frame in `upper`
+  size_t upper_bytes = 0, level_off = 0;
+  for (int l = 1; l < 4; ++l) {
     const size_t bytes = static_cast<size_t>(H >> l) * (W >> l) * 3;
     if (l < level) level_off += bytes;
-    frame_bytes += bytes;
+    upper_bytes += bytes;
   }
   const int hl = H >> level, wl = W >> level;
-  const uint8_t* base = pyr + static_cast<size_t>(n / K) * frame_bytes + level_off;
+  const size_t frame = static_cast<size_t>(n / K);
+  const uint8_t* base =
+      level == 0 ? frames + frame * H * W * 3 : upper + frame * upper_bytes + level_off;
 
   const float fi = static_cast<float>(p / OUT);
   const float fj = static_cast<float>(p % OUT);
@@ -136,18 +141,21 @@ warp_ym_kernel(const uint8_t* __restrict__ pyr,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-int warp_ym_launch(const void* pyr, const void* params, void* out, int n_faces, int K,
-                   int H, int W, int xpass_bf16, void* stream) {
+// frames (level 0), upper (levels 1-3, as warp_xm.cu's pyramid_launch writes
+// them), params (n_faces, 9) → out (n_faces, 112, 112, 3) f32.
+int warp_ym_launch(const void* frames, const void* upper, const void* params, void* out,
+                   int n_faces, int K, int H, int W, int xpass_bf16, void* stream) {
   const dim3 grid((PIX + THREADS - 1) / THREADS, n_faces);
   const dim3 block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* pyr8 = static_cast<const uint8_t*>(pyr);
+  const uint8_t* fr = static_cast<const uint8_t*>(frames);
+  const uint8_t* up = static_cast<const uint8_t*>(upper);
   const float* prm = static_cast<const float*>(params);
   float* o = static_cast<float*>(out);
   if (xpass_bf16)
-    warp_ym_kernel<true><<<grid, block, 0, st>>>(pyr8, prm, o, K, H, W);
+    warp_ym_kernel<true><<<grid, block, 0, st>>>(fr, up, prm, o, K, H, W);
   else
-    warp_ym_kernel<false><<<grid, block, 0, st>>>(pyr8, prm, o, K, H, W);
+    warp_ym_kernel<false><<<grid, block, 0, st>>>(fr, up, prm, o, K, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,9 +23,12 @@ from facerecognizeonnx_tpu_torch.errors import KernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# No --use_fast_math: it changes log2f / exp2f and divisions, which the
+# warp kernel's face table must compute as torch does. -ldl: the gallery
+# kernel takes cuTensorMapEncodeTiled from libcuda with dlopen/dlsym.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -30,6 +30,7 @@ from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 
 MAX_K = 512  # the kernel's register lists; method="tiled" has the same cap
 ROWS_PER_TILE = 128  # gallery rows per step of the kernel's block loop
+DIMS_PER_CHUNK = 32  # feature dims per TMA box (one 128-byte swizzle row)
 
 
 def _sims(queries: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
@@ -81,15 +82,12 @@ def gallery_topk_tiled(
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.gallery_topk_query_tile.argtypes = [ctypes.c_int]
-    lib.gallery_topk_query_tile.restype = ctypes.c_int
-    lib.gallery_topk_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.gallery_topk_launch.restype = ctypes.c_int
-    lib.gallery_topk_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gallery_topk_query_tile.argtypes = [i32]
+    lib.gallery_topk_query_tile.restype = i32
+    lib.gallery_topk_launch.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    lib.gallery_topk_launch.restype = i32
+    lib.gallery_topk_error_string.argtypes = [i32]
     lib.gallery_topk_error_string.restype = ctypes.c_char_p
 
 
@@ -101,11 +99,11 @@ def build_library() -> Tuple[ctypes.CDLL, str]:
 
 def split_plan(Q: int, G: int, query_tile: int, sm_count: int) -> Tuple[int, int]:
     """(rows_per_split, splits) for the kernel's grid of query tiles x
-    gallery splits: about two blocks per SM, each split a multiple of
-    the 128-row tile."""
+    gallery splits: about one block per SM (a block takes most of an
+    SM's shared memory), each split a multiple of the 128-row tile."""
     n_qt = -(-Q // query_tile)
     max_splits = -(-G // ROWS_PER_TILE)
-    splits = min(max_splits, max(1, -(-2 * sm_count // n_qt)))
+    splits = min(max_splits, max(1, -(-sm_count // n_qt)))
     rows = -(-G // splits)
     rows = -(-rows // ROWS_PER_TILE) * ROWS_PER_TILE
     return rows, -(-G // rows)
@@ -127,7 +125,8 @@ def gallery_topk_cuda(
     """(Q, D) x (G, D) → ((Q, k) sims on the (cos+1)/2 scale, (Q, k)
     int32 row indices), without materializing (Q, G).
 
-    CUDA tensors launch csrc/gallery_topk.cu (float32; counted in
+    CUDA tensors launch csrc/gallery_topk.cu (float32 operands,
+    float32-accurate 3xTF32 tensor-core products; counted in
     `gallery_topk_cuda.launches`); CPU tensors run
     `gallery_topk_reference`. k must lie in [1, min(512, G)]: the caller
     clamps it to the real rows, as `GalleryBank.search` does. `tile` is
@@ -145,21 +144,36 @@ def gallery_topk_cuda(
     if queries.device.type == "cpu":
         return gallery_topk_reference(queries, gallery, k)
     dev = queries.device
-    q = queries.to(torch.float32).contiguous()
-    g = gallery.to(torch.float32).contiguous()
     out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_v, out_i
     lib, _ = build_library()
+    q_tile = lib.gallery_topk_query_tile(k)
+    # the kernel reads (rows, D) matrices in (rows, 32)-float TMA boxes: D a
+    # multiple of 4 (16-byte row strides), at least 32; a gallery of fewer
+    # than 128 rows is padded with zero rows (they lie past G and never win)
+    d_pad = max(DIMS_PER_CHUNK, -(-D // 4) * 4)
+    g = gallery.to(torch.float32)
+    if d_pad != D or G < ROWS_PER_TILE:
+        g = torch.nn.functional.pad(g, (0, d_pad - D, 0, max(0, ROWS_PER_TILE - G)))
+    g = g.contiguous()
+    q = queries.to(torch.float32)
+    if d_pad != D:
+        q = torch.nn.functional.pad(q, (0, d_pad - D))
+    q = q.contiguous()
+    q_rows = max(Q, q_tile)  # the split launch zeroes the rows past Q
+    q_hi = torch.empty((q_rows, d_pad), dtype=torch.float32, device=dev)
+    q_lo = torch.empty_like(q_hi)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, splits = split_plan(Q, G, lib.gallery_topk_query_tile(k), sms)
+    rows, splits = split_plan(Q, G, q_tile, sms)
     part_v = torch.empty((Q, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gallery_topk_launch(
-            q.data_ptr(), g.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), Q, G, D, k, rows, splits,
+            q.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(), g.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            Q, q_rows, G, d_pad, k, rows, splits,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -28,13 +28,19 @@ per face:
   5. x-major only: the epilogue (channel 2-c, (s-mean)/scale, bf16) and
      the valid-slot skip (zeros, no reads).
 
-`warp_affine_xm` / `warp_affine_ym` launch their kernels for CUDA
-tensors and count the launches in `warp_affine_xm.launches` /
-`warp_affine_ym.launches`; for CPU tensors they run the plain versions
-`warp_affine_xm_reference` / `warp_affine_ym_reference`. A CUDA tensor
-never takes a plain version: the kernel launches or the wrapper raises.
-`warp_affine` is the counterpart of `warp_affine_pallas` and
-dispatches on `layout`.
+On CUDA tensors the steps run as launches of csrc/warp_xm.cu and
+csrc/warp_ym.cu: `build_pyramid` (levels 1-3; level 0 is the frames
+tensor itself, read in place) counted in `build_pyramid.launches`; the
+x-major resample `resample_xm`, which computes each face's table (step 2-3)
+from its affine in the kernel and returns it beside the crops, counted in
+`warp_affine_xm.launches`; the y-major resample `resample_ym` over a
+`face_params_ym` table, counted in `warp_affine_ym.launches`. For CPU
+tensors `warp_affine_xm` / `warp_affine_ym` run the plain versions
+`warp_affine_xm_reference` / `warp_affine_ym_reference` (and
+`build_pyramid` runs `build_pyramid_reference`). A CUDA tensor never
+takes a plain version: the kernel launches or the wrapper raises.
+`warp_affine` is the counterpart of `warp_affine_pallas` and dispatches
+on `layout`.
 """
 
 from __future__ import annotations
@@ -77,24 +83,54 @@ def level_sizes(H: int, W: int):
     return [(H >> lvl, W >> lvl) for lvl in range(NUM_LEVELS)]
 
 
-def build_pyramid(frames_u8: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) uint8 → (B, P) uint8: the 4 levels, each (H_l, W_l, 3)
-    row-major, concatenated per frame (P = Σ 3·H_l·W_l).
+def upper_levels_bytes(H: int, W: int) -> int:
+    """Bytes per frame of pyramid levels 1-3 (what `build_pyramid` holds)."""
+    return sum(3 * h * w for h, w in level_sizes(H, W)[1:])
 
-    Level l pools the unrounded float level l-1; every partial sum is a
-    dyadic fraction with few bits, so it is exact in f32 in any order.
-    The values are those of both reference pyramids (`build_pyramid_xm`
-    and `build_pyramid_cf`), without their zero canvas."""
+
+def build_pyramid_reference(frames_u8: torch.Tensor) -> torch.Tensor:
+    """Plain version of `build_pyramid`, on any device."""
     B = frames_u8.shape[0]
     level = frames_u8.permute(0, 3, 1, 2).to(torch.float32)
     parts = []
-    for lvl in range(NUM_LEVELS):
-        if lvl:
-            level = F.avg_pool2d(level, 2)
+    for _ in range(1, NUM_LEVELS):
+        level = F.avg_pool2d(level, 2)
         parts.append(
             torch.round(level).to(torch.uint8).permute(0, 2, 3, 1).reshape(B, -1)
         )
     return torch.cat(parts, dim=1)
+
+
+def build_pyramid(frames_u8: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 → (B, P) uint8: pyramid levels 1-3, each
+    (H_l, W_l, 3) row-major, concatenated per frame (P =
+    `upper_levels_bytes(H, W)`). Level 0 is the frame itself, which the
+    warps read in place.
+
+    Level l pools the unrounded float level l-1; every partial sum is a
+    dyadic fraction with few bits, so it is exact in f32 in any order.
+    The values are those of both reference pyramids (`build_pyramid_xm`
+    and `build_pyramid_cf`), without their zero canvas.
+
+    CUDA tensors launch the pyramid kernel of csrc/warp_xm.cu (counted in
+    `build_pyramid.launches`); CPU tensors run `build_pyramid_reference`."""
+    if frames_u8.device.type == "cpu":
+        return build_pyramid_reference(frames_u8)
+    _check_frames(frames_u8)
+    B, H, W, _ = frames_u8.shape
+    frames_u8 = frames_u8.contiguous()
+    out = torch.empty((B, upper_levels_bytes(H, W)), dtype=torch.uint8,
+                      device=frames_u8.device)
+    if B and out.shape[1]:
+        lib, _ = build_library()
+        with torch.cuda.device(frames_u8.device):
+            rc = lib.pyramid_launch(
+                frames_u8.data_ptr(), out.data_ptr(), B, H, W,
+                torch.cuda.current_stream(frames_u8.device).cuda_stream,
+            )
+        _raise_on(lib.warp_xm_error_string, rc, "pyramid")
+        build_pyramid.launches += 1
+    return out
 
 
 def _scaled_inverse(Ms: torch.Tensor):
@@ -109,8 +145,11 @@ def _scaled_inverse(Ms: torch.Tensor):
     span_x = (OUT - 1) * (a.abs() + b.abs()) + 2.0
     span_y = (OUT - 1) * (c.abs() + d.abs()) + 2.0
     extent = torch.maximum(span_x, span_y)
+    # XLA (and torch on CUDA) divide by a constant as a product with its
+    # float32 reciprocal; torch on the CPU divides. Written as the product
+    # so that both devices pick the reference's level at COVER·2^l.
     level = torch.clamp(
-        torch.ceil(torch.log2(torch.clamp_min(extent / COVER, 1e-6))),
+        torch.ceil(torch.log2(torch.clamp_min(extent * (1.0 / COVER), 1e-6))),
         0, NUM_LEVELS - 1,
     )
     factor = torch.exp2(level)
@@ -170,15 +209,20 @@ def face_params_ym(Ms: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
-def _check_inputs(frames_u8, Ms, valid):
+def _check_frames(frames_u8):
     if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 or frames_u8.shape[-1] != 3:
         raise InvalidInputError(
             f"frames must be (B, H, W, 3) uint8, got {tuple(frames_u8.shape)} "
             f"{frames_u8.dtype}"
         )
-    B, H, W, _ = frames_u8.shape
+    H, W = frames_u8.shape[1:3]
     if H > MAX_H or W > MAX_W:
         raise InvalidInputError(f"frames up to {MAX_H}x{MAX_W}, got {H}x{W}")
+
+
+def _check_inputs(frames_u8, Ms, valid):
+    _check_frames(frames_u8)
+    B = frames_u8.shape[0]
     if Ms.dim() != 4 or Ms.shape[0] != B or Ms.shape[2:] != (2, 3):
         raise InvalidInputError(f"Ms must be ({B}, K, 2, 3), got {tuple(Ms.shape)}")
     if Ms.device != frames_u8.device:
@@ -209,30 +253,35 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _resample_reference(pyr, prm, H, W, K, win_x, win_y, xpass_bf16=False):
+def _resample_reference(frames, pyr, prm, K, win_x, win_y, xpass_bf16=False):
     """The kernels' arithmetic in plain torch, on any device: vectorized
-    gather over a pyramid (`build_pyramid`) and a per-face table
-    (`face_params_xm` / `face_params_ym`) of B frames of H x W and K
-    faces each, with a (win_x, win_y) window. Returns (N, 112, 112, 3)
-    f32 sums."""
-    B = pyr.shape[0]
+    gather over B frames of H x W (level 0), their levels 1-3
+    (`build_pyramid`) and a per-face table (`face_params_xm` /
+    `face_params_ym`) of K faces each, with a (win_x, win_y) window.
+    Returns (N, 112, 112, 3) f32 sums."""
+    B, H, W, _ = frames.shape
     N = B * K
     dev = pyr.device
-    pyr = pyr.reshape(-1)
+    # one flat buffer: all frames, then all upper levels
+    flat = torch.cat([frames.reshape(-1), pyr.reshape(-1)])
 
     sizes = level_sizes(H, W)
     offs = [0]
-    for h, w in sizes[:-1]:
+    for h, w in sizes[1:-1]:
         offs.append(offs[-1] + 3 * h * w)
-    level = prm[:, 0].long()
+    # a NaN entry (from a matrix whose inverse overflows) reads as 0, as
+    # the kernels' float → int conversion has it
+    level = torch.nan_to_num(prm[:, 0]).long().clamp(0, NUM_LEVELS - 1)
     hl = torch.tensor([h for h, _ in sizes], device=dev)[level][:, None, None]
     wl = torch.tensor([w for _, w in sizes], device=dev)[level][:, None, None]
-    base = (
-        torch.arange(N, device=dev) // K * (3 * sum(h * w for h, w in sizes))
-        + torch.tensor(offs, device=dev)[level]
-    )[:, None, None]
-    x_lo = prm[:, 1].long()[:, None, None]
-    y_lo = prm[:, 2].long()[:, None, None]
+    b = torch.arange(N, device=dev) // K
+    upper = B * H * W * 3 + b * upper_levels_bytes(H, W) + torch.tensor(
+        [0] + offs, device=dev
+    )[level]
+    base = torch.where(level == 0, b * (H * W * 3), upper)[:, None, None]
+    pyr = flat
+    x_lo = torch.nan_to_num(prm[:, 1]).long()[:, None, None]
+    y_lo = torch.nan_to_num(prm[:, 2]).long()[:, None, None]
     a, b, c, d, tx, ty = (prm[:, k, None, None] for k in range(3, 9))
 
     ii = torch.arange(OUT, dtype=torch.float32, device=dev)[:, None]
@@ -270,32 +319,31 @@ def _resample_reference(pyr, prm, H, W, K, win_x, win_y, xpass_bf16=False):
 
 
 def resample_xm_reference(
+    frames_u8: torch.Tensor,
     pyr: torch.Tensor,
     prm: torch.Tensor,
-    H: int,
-    W: int,
     K: int,
     epilogue: Optional[Tuple[float, float]] = None,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain-torch version of the x-major kernel, on any device: pyramid
-    (`build_pyramid`) and per-face table (`face_params_xm`) of B frames
-    of H x W and K faces each → (B, K, 112, 112, 3): raw f32 BGR, or
-    with epilogue=(mean, scale) bf16 normalized RGB. valid (B, K):
-    invalid slots are zeros."""
-    s = _resample_reference(pyr, prm, H, W, K, WIN_X, WIN_Y)
-    return _finish(s, pyr.shape[0], K, epilogue, valid)
+    """Plain-torch version of the x-major resample, on any device: B
+    frames (level 0), their levels 1-3 (`build_pyramid`) and the per-face
+    table (`face_params_xm`) of K faces each → (B, K, 112, 112, 3): raw
+    f32 BGR, or with epilogue=(mean, scale) bf16 normalized RGB. valid
+    (B, K): invalid slots are zeros."""
+    s = _resample_reference(frames_u8, pyr, prm, K, WIN_X, WIN_Y)
+    return _finish(s, frames_u8.shape[0], K, epilogue, valid)
 
 
 def resample_ym_reference(
-    pyr: torch.Tensor, prm: torch.Tensor, H: int, W: int, K: int,
+    frames_u8: torch.Tensor, pyr: torch.Tensor, prm: torch.Tensor, K: int,
     xpass_bf16: bool = False,
 ) -> torch.Tensor:
-    """Plain-torch version of the y-major kernel, on any device: pyramid
-    (`build_pyramid`) and per-face table (`face_params_ym`) →
+    """Plain-torch version of the y-major kernel, on any device: frames,
+    levels 1-3 (`build_pyramid`) and per-face table (`face_params_ym`) →
     (B, K, 112, 112, 3) raw f32 BGR."""
-    s = _resample_reference(pyr, prm, H, W, K, YM_WIN_X, YM_WIN_Y, xpass_bf16)
-    return _finish(s, pyr.shape[0], K, None, None)
+    s = _resample_reference(frames_u8, pyr, prm, K, YM_WIN_X, YM_WIN_Y, xpass_bf16)
+    return _finish(s, frames_u8.shape[0], K, None, None)
 
 
 def warp_affine_xm_reference(
@@ -308,9 +356,8 @@ def warp_affine_xm_reference(
     resample. frames_u8 (B, H, W, 3) uint8, Ms (B, K, 2, 3) →
     (B, K, 112, 112, 3)."""
     _check_inputs(frames_u8, Ms, valid)
-    _, H, W, _ = frames_u8.shape
     return resample_xm_reference(
-        build_pyramid(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
+        frames_u8, build_pyramid_reference(frames_u8), face_params_xm(Ms), Ms.shape[1],
         epilogue, valid,
     )
 
@@ -321,9 +368,9 @@ def warp_affine_ym_reference(
     """The whole y-major warp in plain torch. frames_u8 (B, H, W, 3)
     uint8, Ms (B, K, 2, 3) → (B, K, 112, 112, 3) raw f32 BGR."""
     _check_inputs(frames_u8, Ms, None)
-    _, H, W, _ = frames_u8.shape
     return resample_ym_reference(
-        build_pyramid(frames_u8), face_params_ym(Ms), H, W, Ms.shape[1], xpass_bf16
+        frames_u8, build_pyramid_reference(frames_u8), face_params_ym(Ms), Ms.shape[1],
+        xpass_bf16,
     )
 
 
@@ -331,22 +378,21 @@ def warp_affine_ym_reference(
 
 
 def _bind_xm(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pyramid_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.pyramid_launch.restype = i32
     lib.warp_xm_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        ctypes.c_float, ctypes.c_float, ptr,
     ]
-    lib.warp_xm_launch.restype = ctypes.c_int
-    lib.warp_xm_error_string.argtypes = [ctypes.c_int]
+    lib.warp_xm_launch.restype = i32
+    lib.warp_xm_error_string.argtypes = [i32]
     lib.warp_xm_error_string.restype = ctypes.c_char_p
 
 
 def _bind_ym(lib: ctypes.CDLL) -> None:
-    lib.warp_ym_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.warp_ym_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.warp_ym_launch.restype = ctypes.c_int
     lib.warp_ym_error_string.argtypes = [ctypes.c_int]
     lib.warp_ym_error_string.restype = ctypes.c_char_p
@@ -363,87 +409,96 @@ def build_library_ym() -> Tuple[ctypes.CDLL, str]:
     return _nvcc.build_library("warp_ym.cu", _bind_ym)
 
 
-def _check_table(pyr, prm, H, W, K):
-    B = pyr.shape[0]
-    N = B * K
-    dev = pyr.device
+def _raise_on(error_string, rc: int, name: str) -> None:
+    if rc != 0:
+        raise KernelError(f"{name} launch failed: {error_string(rc).decode()}")
+
+
+def _check_levels(frames_u8, pyr, K):
+    """Frames (level 0) and their levels 1-3 as the kernels take them."""
+    _check_frames(frames_u8)
+    B, H, W, _ = frames_u8.shape
+    dev = frames_u8.device
     if dev.type != "cuda":
         raise InvalidInputError(f"the warp kernels take CUDA tensors, got {dev}")
-    frame_bytes = sum(3 * h * w for h, w in level_sizes(H, W))
+    if not frames_u8.is_contiguous():
+        raise InvalidInputError("frames must be contiguous")
+    n_up = upper_levels_bytes(H, W)
     if (
-        pyr.dtype != torch.uint8 or tuple(pyr.shape) != (B, frame_bytes)
-        or not pyr.is_contiguous()
+        pyr.dtype != torch.uint8 or tuple(pyr.shape) != (B, n_up)
+        or not pyr.is_contiguous() or pyr.device != dev
     ):
-        raise InvalidInputError(f"pyramid must be contiguous uint8 ({B}, {frame_bytes})")
-    if (
-        prm.dtype != torch.float32 or tuple(prm.shape) != (N, N_PARAMS)
-        or not prm.is_contiguous() or prm.device != dev
-    ):
-        raise InvalidInputError(f"face table must be contiguous float32 ({N}, {N_PARAMS})")
-    if N > 65535:
-        raise InvalidInputError(f"at most 65535 faces per launch, got {N}")
-    return B, N, dev
+        raise InvalidInputError(f"levels 1-3 must be contiguous uint8 ({B}, {n_up}) on {dev}")
+    if B * K > 65535:
+        raise InvalidInputError(f"at most 65535 faces per launch, got {B * K}")
+    return B, H, W, dev
 
 
 def resample_xm(
+    frames_u8: torch.Tensor,
     pyr: torch.Tensor,
-    prm: torch.Tensor,
-    H: int,
-    W: int,
-    K: int,
+    Ms: torch.Tensor,
     epilogue: Optional[Tuple[float, float]] = None,
     valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Launch csrc/warp_xm.cu on CUDA tensors: the kernel counterpart of
-    `resample_xm_reference`, same arguments and output. Counts the
-    launch in `warp_affine_xm.launches`."""
-    B, N, dev = _check_table(pyr, prm, H, W, K)
-    valid_u8 = None
-    if valid is not None:
-        if valid.numel() != N or valid.device != dev:
-            raise InvalidInputError(f"valid must hold {N} flags on {dev}")
-        valid_u8 = valid.to(torch.uint8).reshape(N).contiguous()
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the resample of csrc/warp_xm.cu on CUDA tensors: frames
+    (level 0), their levels 1-3 (`build_pyramid`) and the (B, K, 2, 3)
+    forward affines. Each block computes its face's table from Ms (the
+    float32 operations of `face_params_xm`) and resamples. Returns
+    (crops as `resample_xm_reference` gives them, the (B·K, 9) table
+    the kernel used). Counts the launch in `warp_affine_xm.launches`."""
+    K = Ms.shape[1]
+    B, H, W, dev = _check_levels(frames_u8, pyr, K)
+    _check_inputs(frames_u8, Ms, valid)
+    N = B * K
+    ms = Ms.to(torch.float32).contiguous()
+    valid_u8 = None if valid is None else valid.to(torch.uint8).reshape(N).contiguous()
     out = torch.empty(
         (B, K, OUT, OUT, 3),
         dtype=torch.float32 if epilogue is None else torch.bfloat16,
         device=dev,
     )
+    table = torch.empty((N, N_PARAMS), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out, table
     mean, scale = (0.0, 1.0) if epilogue is None else epilogue
     lib, _ = build_library()
     with torch.cuda.device(dev):
         rc = lib.warp_xm_launch(
-            pyr.data_ptr(), prm.data_ptr(),
+            frames_u8.data_ptr(), pyr.data_ptr(), ms.data_ptr(),
             None if valid_u8 is None else valid_u8.data_ptr(), out.data_ptr(),
-            N, K, H, W, int(epilogue is not None), float(mean), 1.0 / float(scale),
-            torch.cuda.current_stream(dev).cuda_stream,
+            table.data_ptr(), N, K, H, W, int(epilogue is not None), float(mean),
+            1.0 / float(scale), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        raise KernelError(
-            f"warp_xm launch failed: {lib.warp_xm_error_string(rc).decode()}"
-        )
+    _raise_on(lib.warp_xm_error_string, rc, "warp_xm")
     warp_affine_xm.launches += 1
-    return out
+    return out, table
 
 
 def resample_ym(
-    pyr: torch.Tensor, prm: torch.Tensor, H: int, W: int, K: int,
+    frames_u8: torch.Tensor, pyr: torch.Tensor, prm: torch.Tensor, K: int,
     xpass_bf16: bool = False,
 ) -> torch.Tensor:
     """Launch csrc/warp_ym.cu on CUDA tensors: the kernel counterpart of
     `resample_ym_reference`, same arguments and output. Counts the
     launch in `warp_affine_ym.launches`."""
-    B, N, dev = _check_table(pyr, prm, H, W, K)
+    B, H, W, dev = _check_levels(frames_u8, pyr, K)
+    N = B * K
+    if (
+        prm.dtype != torch.float32 or tuple(prm.shape) != (N, N_PARAMS)
+        or not prm.is_contiguous() or prm.device != dev
+    ):
+        raise InvalidInputError(f"face table must be contiguous float32 ({N}, {N_PARAMS})")
     out = torch.empty((B, K, OUT, OUT, 3), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
     lib, _ = build_library_ym()
     with torch.cuda.device(dev):
         rc = lib.warp_ym_launch(
-            pyr.data_ptr(), prm.data_ptr(), out.data_ptr(), N, K, H, W,
-            int(bool(xpass_bf16)), torch.cuda.current_stream(dev).cuda_stream,
+            frames_u8.data_ptr(), pyr.data_ptr(), prm.data_ptr(), out.data_ptr(), N, K,
+            H, W, int(bool(xpass_bf16)), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        raise KernelError(
-            f"warp_ym launch failed: {lib.warp_ym_error_string(rc).decode()}"
-        )
+    _raise_on(lib.warp_ym_error_string, rc, "warp_ym")
     warp_affine_ym.launches += 1
     return out
 
@@ -464,11 +519,8 @@ def warp_affine_xm(
     if frames_u8.device.type == "cpu":
         return warp_affine_xm_reference(frames_u8, Ms, epilogue, valid)
     _check_inputs(frames_u8, Ms, valid)
-    _, H, W, _ = frames_u8.shape
-    return resample_xm(
-        build_pyramid(frames_u8), face_params_xm(Ms), H, W, Ms.shape[1],
-        epilogue, valid,
-    )
+    frames_u8 = frames_u8.contiguous()
+    return resample_xm(frames_u8, build_pyramid(frames_u8), Ms, epilogue, valid)[0]
 
 
 def warp_affine_ym(
@@ -482,9 +534,9 @@ def warp_affine_ym(
     if frames_u8.device.type == "cpu":
         return warp_affine_ym_reference(frames_u8, Ms, xpass_bf16)
     _check_inputs(frames_u8, Ms, None)
-    _, H, W, _ = frames_u8.shape
+    frames_u8 = frames_u8.contiguous()
     return resample_ym(
-        build_pyramid(frames_u8), face_params_ym(Ms), H, W, Ms.shape[1], xpass_bf16
+        frames_u8, build_pyramid(frames_u8), face_params_ym(Ms), Ms.shape[1], xpass_bf16
     )
 
 
@@ -522,4 +574,5 @@ def warp_affine(
 
 
 warp_affine_xm.launches = 0
+build_pyramid.launches = 0
 warp_affine_ym.launches = 0

@@ -143,6 +143,55 @@ def test_split_plan_covers_the_gallery():
         assert rows * splits >= G > rows * (splits - 1)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero
+    (+2^12 on the magnitude bits, then drop the low 13)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _sims_3xtf32(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """What csrc/gallery_topk.cu sums: hi*hi + (hi*lo + lo*hi), hi and lo
+    the TF32 parts of each operand, then (s + 1) * 0.5 (test only)."""
+    q_hi, g_hi = _tf32_rna(q), _tf32_rna(g)
+    q_lo, g_lo = _tf32_rna(q - q_hi), _tf32_rna(g - g_hi)
+    big = q_hi @ g_hi.t()
+    small = q_hi @ g_lo.t() + q_lo @ g_hi.t()
+    return (big + small + 1.0) * 0.5
+
+
+def test_tf32_split_rounds_half_away_and_is_exact_in_sum():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11), 0.1, -3.7e-3])
+    hi = _tf32_rna(x)
+    np.testing.assert_array_equal(hi[:3].numpy(), [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                                                   -(1.0 + 2.0 ** -10)])
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert torch.equal(hi + (x - hi), x)  # the split loses nothing before lo's rounding
+
+
+@pytest.mark.parametrize("k", [5, 512])
+def test_3xtf32_products_match_jax_reference(k):
+    """The kernel's product precision (3xTF32) against the JAX package's
+    float32 reference at Q=16, G=4,096, D=512: sims within the 1e-5 bar
+    (measured on this CPU: max |Δ| 1.2e-7 at k=5, 6.0e-8 at k=512), indices identical outside
+    1e-5 near-ties, planted duplicates tied exactly and lowest index first."""
+    from chip_smoke import check_topk
+    from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
+
+    rng = np.random.default_rng(k)
+    gallery = _normed(rng, 4096, 512)
+    gallery[[300, 17, 4000]] = gallery[2048]  # exact copies of one row
+    queries = _normed(rng, 16, 512)
+    queries[0] = gallery[2048]
+    s_j, i_j = j_reference(jnp.asarray(queries), jnp.asarray(gallery), k + 1)
+    s_j, i_j = torch.from_numpy(np.array(s_j)), torch.from_numpy(np.array(i_j))
+    sims = _sims_3xtf32(torch.from_numpy(queries), torch.from_numpy(gallery))
+    v, i = topk_stable(sims, k)
+    err, ties = check_topk(v, i.to(torch.int32), s_j[:, :k], i_j[:, :k], s_j[:, k])
+    assert err <= 1e-5, err
+    assert i[0, :4].tolist() == [17, 300, 2048, 4000] and ties >= 3
+
+
 # ---------------------------------------------------------------- GalleryBank
 
 

@@ -83,13 +83,17 @@ def test_face_levels_cover_0_to_3(case):
 def test_pyramid_equals_jax_levels(case):
     frames, _, _ = case
     B, H, W, _ = frames.shape
-    got = warp_cuda.build_pyramid(torch.from_numpy(frames))
+    got = warp_cuda.build_pyramid(torch.from_numpy(frames))  # levels 1-3
     want = np.asarray(j_build_pyramid(jnp.asarray(frames))).astype(np.float32)
     assert got.dtype == torch.uint8
+    assert got.shape == (B, warp_cuda.upper_levels_bytes(H, W))
     off = 0
     for lvl, (h, w) in enumerate(warp_cuda.level_sizes(H, W)):
-        level = got[:, off: off + 3 * h * w].reshape(B, h, w, 3).numpy()
-        off += 3 * h * w
+        if lvl == 0:  # level 0 is the frame itself
+            level = frames
+        else:
+            level = got[:, off: off + 3 * h * w].reshape(B, h, w, 3).numpy()
+            off += 3 * h * w
         # JAX canvas: (B, level, channel, x, y), zero outside the level
         np.testing.assert_array_equal(
             level.transpose(0, 3, 2, 1), want[:, lvl, :, :w, :h]
@@ -162,3 +166,87 @@ def test_wrapper_rejects_bad_inputs():
         warp_cuda.warp_affine_xm(frames, torch.zeros((2, 2, 2, 3)))
     with pytest.raises(InvalidInputError):
         warp_cuda.warp_affine_xm(frames, Ms, valid=torch.ones((1, 3), dtype=torch.bool))
+
+
+# ------------------------------------------------ the edges of the face table
+
+
+@pytest.fixture(scope="module")
+def sweep():
+    from chip_smoke import _table_inputs, table_sweep_matrices
+
+    M = table_sweep_matrices()
+    extent = _table_inputs(M)[0]
+    rng = np.random.default_rng(160)
+    frames = rng.integers(0, 256, (M.shape[0] // 8, 160, 160, 3), dtype=np.uint8)
+    return frames, M.reshape(-1, 8, 2, 3), extent
+
+
+def test_table_sweep_matches_pallas_interpret(sweep):
+    """The adversarial sweep of chip_smoke.py (extents at COVER·2^l and
+    the float32 values beside them, window minima on and one ulp off
+    16 / 128, singular and overflowing inverses, translations past
+    ±30000) through the plain version and the Pallas kernel.
+
+    XLA on the CPU contracts the span 111·(|a|+|b|) + 2 into an FMA, so a
+    face whose level ratio lies within a few ulps of a power of two may
+    take the next level there: measured on this CPU, 1 face of 320 (max
+    |Δ| 98.9 on that face), every other face within the raw bar."""
+    frames, Ms, extent = sweep
+    got = _port(frames, Ms).numpy()
+    want = _jax(frames, Ms)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    d = np.abs(got - want).reshape(len(extent), -1).max(axis=1)
+    off = np.nonzero(d > 1.0)[0]
+    ratio = extent[off].astype(np.float64) / 110.0
+    near_pow2 = np.abs(ratio / 2.0 ** np.round(np.log2(ratio)) - 1.0) < 8 * 2.0 ** -23
+    assert len(off) <= 2 and near_pow2.all(), (off, d[off], extent[off])
+
+
+def test_table_sweep_levels_and_fixed_point(sweep):
+    _, Ms, extent = sweep
+    prm = warp_cuda.face_params_xm(torch.from_numpy(Ms)).numpy()
+    finite = np.isfinite(prm).all(axis=1)
+    assert finite.sum() >= len(prm) - 2  # only the overflowing inverses give NaN
+    lvl = prm[finite, 0]
+    assert set(lvl.tolist()) == {0.0, 1.0, 2.0, 3.0}
+    # the level is the ceil of log2(extent / COVER), the quotient taken as
+    # a product with the float32 reciprocal, as XLA and torch on CUDA do
+    ratio = extent[finite] * np.float32(1.0 / 110.0)
+    np.testing.assert_array_equal(lvl, np.clip(np.ceil(np.log2(np.maximum(ratio, 1e-6))), 0, 3))
+    np.testing.assert_array_equal(prm[finite, 1] % 16, 0)
+    np.testing.assert_array_equal(prm[finite, 2] % 128, 0)
+    assert np.abs(prm[finite, 3:7]).max() <= 2000.0 and np.abs(prm[finite, 7:]).max() <= 30000.0
+    np.testing.assert_array_equal(prm[finite, 3:7] * 2.0 ** 20 % 1, 0)
+    np.testing.assert_array_equal(prm[finite, 7:] * 2.0 ** 16 % 1, 0)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (9, 13)], ids=["8x8", "9x13"])
+def test_pyramid_small_frames_equal_jax_levels(hw):
+    """Level 3 of an 8x8 frame is one pixel; 9x13 drops odd edges."""
+    H, W = hw
+    frames = np.random.default_rng(H * W).integers(0, 256, (2, H, W, 3), dtype=np.uint8)
+    got = warp_cuda.build_pyramid(torch.from_numpy(frames))
+    want = np.asarray(j_build_pyramid(jnp.asarray(frames))).astype(np.float32)
+    off = 0
+    for lvl, (h, w) in enumerate(warp_cuda.level_sizes(H, W)[1:], start=1):
+        level = got[:, off: off + 3 * h * w].reshape(2, h, w, 3).numpy()
+        off += 3 * h * w
+        np.testing.assert_array_equal(level.transpose(0, 3, 2, 1), want[:, lvl, :, :w, :h])
+    assert off == got.shape[1] == warp_cuda.upper_levels_bytes(H, W)
+
+
+def test_kernel_launchers_take_cuda_tensors_only():
+    """On the CPU the wrappers run the plain versions and count nothing; the
+    launchers themselves refuse CPU tensors rather than fall back."""
+    from facerecognizeonnx_tpu_torch.errors import InvalidInputError
+
+    frames = torch.zeros((1, 32, 48, 3), dtype=torch.uint8)
+    Ms = torch.zeros((1, 2, 2, 3))
+    pyr = warp_cuda.build_pyramid(frames)
+    assert pyr.shape == (1, warp_cuda.upper_levels_bytes(32, 48))
+    assert warp_cuda.build_pyramid.launches == 0
+    with pytest.raises(InvalidInputError, match="CUDA"):
+        warp_cuda.resample_xm(frames, pyr, Ms)
+    with pytest.raises(InvalidInputError, match="CUDA"):
+        warp_cuda.resample_ym(frames, pyr, warp_cuda.face_params_ym(Ms), 2)
