@@ -28,9 +28,17 @@ Phases (any failure exits non-zero; there is no CPU path):
      kernel's at these shapes, features by cosine); frames/s and faces/s
      (median of 10 after warm-up), a per-stage time split and the
      device operations of one step and of its align stage (profiler)
-  6. the y-major warp kernel vs its plain version on phase 3's frames and
-     matrices (raw and xpass_bf16; times, median of 20), then its path:
-     `warp_cuda.warp_affine` with its default layout
+  6. the y-major warp (csrc/warp_ym.cu: one resample launch that computes
+     its own face table, after phase 3's pyramid launch) vs its plain
+     versions on the card, bit for bit: the table the kernel writes vs
+     face_params_ym over the y-major sweep (`table_sweep_matrices(layout=
+     "ymajor")`, 320 faces) and the x-major one, and those faces' crops;
+     raw and xpass_bf16 crops and the whole call on phase 3's 640x640
+     frames (B=16, K=8) and 251x317 frames; its path `warp_cuda.
+     warp_affine` (default layout): 1 pyramid + 1 warp_ym launch per call,
+     counted and traced; resample, xpass_bf16 and whole-call times, graph
+     and eager, beside their bounds and the plain versions'
+
   7. the gallery top-k kernel vs its plain version for k in {1, 5, 32,
      100, 512}, Q in {1, 128, 300} and G in {5, 100,000, 100,003} (k <= G),
      D=512, with 1,000 planted duplicate rows in the large galleries;
@@ -258,13 +266,14 @@ def _table_inputs(M: np.ndarray):
     return torch.maximum(span_x, span_y).numpy(), x_min.numpy(), y_min.numpy()
 
 
-def table_sweep_matrices(seed=11) -> np.ndarray:
-    """(N, 2, 3) float32 forward affines, N = 320, on the edges of the
-    x-major face table: source extents at COVER·2^l and the float32 values
+def table_sweep_matrices(seed=11, layout="xmajor") -> np.ndarray:
+    """(N, 2, 3) float32 forward affines, N = 320, on the edges of a
+    layout's face table: source extents at COVER·2^l and the float32 values
     next to it (l = 0..3, plain and rotated), window minima x_min / y_min on
-    and one ulp off multiples of 16 / 128, singular and near-singular
-    matrices, translations past ±30000, mirrored and rotated matrices
-    (negative coefficients), then random similarities."""
+    and one ulp off multiples of the layout's origin rounding (x-major 16 /
+    128; y-major 128 / 16, with origins at and past its 512 / 528 clips),
+    singular and near-singular matrices, translations past ±30000, mirrored
+    and rotated matrices (negative coefficients), then random similarities."""
     rng = np.random.default_rng(seed)
     steps = (1.0 + np.arange(-160, 161) * 2.0 ** -23).astype(np.float32)
     faces = []
@@ -277,15 +286,18 @@ def table_sweep_matrices(seed=11) -> np.ndarray:
             M[:, 0, 0], M[:, 0, 1], M[:, 1, 0], M[:, 1, 1] = s * cs, -s * sn, s * sn, s * cs
             M[:, :, 2] = rng.uniform(0, 300, (1, 2)).astype(np.float32)
             faces += _nearest_hits(M, _table_inputs(M)[0], T, 16)
-    for axis, align, reps in ((0, 16.0, 8), (1, 128.0, 4)):
-        for m in range(1, reps + 1):
-            target = align * m
-            t0 = -target * 1.25  # forward scale 1.25: x_min = -tx / 1.25
-            M = np.zeros((len(steps), 2, 3), np.float32)
-            M[:, 0, 0] = M[:, 1, 1] = 1.25
-            M[:, axis, 2] = np.float32(t0) * steps
-            M[:, 1 - axis, 2] = -40.0
-            faces += _nearest_hits(M, _table_inputs(M)[1 + axis], target, 3)
+    if layout == "xmajor":
+        targets = [(0, 16.0 * m) for m in range(1, 9)] + [(1, 128.0 * m) for m in range(1, 5)]
+    else:
+        targets = [(0, 128.0 * m) for m in range(1, 7)] + [
+            (1, 16.0 * m) for m in (1, 2, 3, 8, 16, 32, 33, 34, 35, 41)]
+    for axis, target in targets:
+        t0 = -target * 1.25  # forward scale 1.25: x_min = -tx / 1.25
+        M = np.zeros((len(steps), 2, 3), np.float32)
+        M[:, 0, 0] = M[:, 1, 1] = 1.25
+        M[:, axis, 2] = np.float32(t0) * steps
+        M[:, 1 - axis, 2] = -40.0
+        faces += _nearest_hits(M, _table_inputs(M)[1 + axis], target, 3)
     special = [
         np.zeros((2, 3)),
         [[1, 2, 30], [2, 4, 40]],                    # rank 1
@@ -517,48 +529,99 @@ def phase_warp_xm(dev, rng):
 
 
 def phase_ymajor(frames, Ms, odd, odd_Ms, K) -> dict:
-    """The y-major kernel vs its plain version, then its path."""
-    H, W = frames.shape[1:3]
-    pyr, prm = warp_cuda.build_pyramid(frames), warp_cuda.face_params_ym(Ms)
-    odd_pyr, odd_prm = warp_cuda.build_pyramid(odd), warp_cuda.face_params_ym(odd_Ms)
-    oh, ow = odd.shape[1:3]
+    """The y-major warp's launch (its table included) vs its plain versions,
+    bit for bit; its times; then its path: `warp_cuda.warp_affine` with its
+    default layout."""
+    dev = frames.device
+    B, H, W = frames.shape[:3]
+    rng = np.random.default_rng(12)
+    # the table the kernel computes and writes, over the y-major sweep and the
+    # x-major one; the crops of the faces whose table is finite
+    swept = []
+    for layout in ("ymajor", "xmajor"):
+        sweep = torch.from_numpy(table_sweep_matrices(layout=layout)).to(dev).reshape(-1, K, 2, 3)
+        sweep_frames = torch.from_numpy(
+            rng.integers(0, 256, (sweep.shape[0], H, W, 3), dtype=np.uint8)).to(dev)
+        sweep_pyr = warp_cuda.build_pyramid(sweep_frames)
+        sweep_out, table = warp_cuda.resample_ym(sweep_frames, sweep_pyr, sweep)
+        want = warp_cuda.face_params_ym(sweep)
+        same = table_bits_equal(table, want)
+        bad = torch.nonzero(~same).flatten().tolist()
+        assert same.all(), f"{layout} sweep: kernel table differs on faces {bad}"
+        finite = torch.isfinite(want).all(dim=1)
+        sweep_ref = warp_cuda.resample_ym_reference(sweep_frames, sweep_pyr, want, K)
+        assert torch.equal(sweep_out.reshape(len(want), -1)[finite],
+                           sweep_ref.reshape(len(want), -1)[finite]), f"{layout} sweep crops differ"
+        levels = sorted({int(v) for v in want[finite, 0].tolist()})
+        swept.append(f"{layout} {len(want)} faces ({int((~finite).sum())} with NaN entries, "
+                     f"levels {levels})")
+
+    # crops, raw and xpass_bf16, and the whole call: 640x640 B=16 K=8, 251x317
     err = 0.0
-    for xbf in (False, True):
-        for f_, p_, q_ in ((frames, pyr, prm), (odd, odd_pyr, odd_prm)):
-            got = warp_cuda.resample_ym(f_, p_, q_, K, xbf)
-            want = warp_cuda.resample_ym_reference(f_, p_, q_, K, xbf)
+    for f_, m_ in ((frames, Ms), (odd, odd_Ms)):
+        pyr_, prm_ = warp_cuda.build_pyramid(f_), warp_cuda.face_params_ym(m_)
+        for xbf in (False, True):
+            got, table = warp_cuda.resample_ym(f_, pyr_, m_, xbf)
+            want = warp_cuda.resample_ym_reference(f_, pyr_, prm_, K, xbf)
             torch.cuda.synchronize()
             assert torch.isfinite(got).all()
+            assert table_bits_equal(table, prm_).all(), f"table differs at {tuple(f_.shape[1:3])}"
             d = float((got - want).abs().max())
-            assert d <= 1e-3, f"y-major warp deviates {d} (xpass_bf16={xbf}, {f_.shape[1:3]})"
             err = max(err, d)
-    ms, plain_ms, bf16_ms = in_turns(
-        graph_timer(lambda: warp_cuda.resample_ym(frames, pyr, prm, K)),
-        eager_timer(lambda: warp_cuda.resample_ym_reference(frames, pyr, prm, K)),
-        graph_timer(lambda: warp_cuda.resample_ym(frames, pyr, prm, K, True)),
-    )
-    n_out = prm.shape[0] * 112 * 112
-    bound, by = bound_ms(
-        warp_read_bytes(prm, H, W, K, warp_cuda.YM_WIN_X, warp_cuda.YM_WIN_Y)
-        + prm.numel() * 4 + n_out * 3 * 4,
-        n_out * WARP_OPS_PER_PIXEL,
-    )
+            assert torch.equal(got, want), \
+                f"y-major crops deviate {d} (xpass_bf16={xbf}, {tuple(f_.shape[1:3])})"
+        whole = warp_cuda.warp_affine(f_, m_)
+        assert torch.equal(whole, warp_cuda.warp_affine_ym_reference(f_, m_)), "whole call differs"
+    pyr, prm = warp_cuda.build_pyramid(frames), warp_cuda.face_params_ym(Ms)
+    levels = sorted(set(prm[:, 0].int().tolist()))
+    assert levels == [0, 1, 2, 3], levels
+
     # its path: the counterpart of warp_affine_pallas, default layout
     reset_counts()
     out = warp_cuda.warp_affine(frames, Ms)
     torch.cuda.synchronize()
     counts = read_counts()
-    launches = counts["warp_ym"]
-    assert launches > 0, "warp_affine(layout='ymajor') did not launch the kernel"
-    assert counts["warp_xm_pyramid"] > 0, "warp_affine(layout='ymajor') built no pyramid"
-    assert torch.equal(out, warp_cuda.resample_ym(frames, pyr, prm, K))
-    log(f"y-major warp kernel vs plain (B={frames.shape[0]}, K={K}, {H}x{W}; 2 frames of "
-        f"{oh}x{ow}; raw and xpass_bf16): max|d| {err:.3g} (bar 1e-3); times (median of 20, "
-        f"in turns): kernel {ms:.4f} ms (xpass_bf16 {bf16_ms:.4f} ms) | plain {plain_ms:.4f} ms "
-        f"| bound {bound:.4f} ms ({by}); warp_affine(default layout) launches {launches} "
-        f"(pyramid launches {counts['warp_xm_pyramid']})")
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+    assert counts["warp_ym"] == 1 and counts["warp_xm_pyramid"] == 1, \
+        f"warp_affine(layout='ymajor') launches {counts}, want 1 pyramid + 1 warp_ym"
+    assert counts["warp_xm"] == 0 and counts["gallery_topk"] == 0, counts
+    assert torch.equal(out, warp_cuda.resample_ym(frames, pyr, Ms)[0])
+    traced, called = device_ops(lambda: warp_cuda.warp_affine(frames, Ms))
+    assert traced in (0, 2), f"warp_affine(layout='ymajor') ran {traced} device operations"
+
+    t_res, t_bf16, t_res_plain, t_bf16_plain, t_all, t_all_plain, t_all_eager, t_res_eager = \
+        in_turns(
+            graph_timer(lambda: warp_cuda.resample_ym(frames, pyr, Ms)),
+            graph_timer(lambda: warp_cuda.resample_ym(frames, pyr, Ms, True)),
+            eager_timer(lambda: warp_cuda.resample_ym_reference(
+                frames, pyr, warp_cuda.face_params_ym(Ms), K)),
+            eager_timer(lambda: warp_cuda.resample_ym_reference(
+                frames, pyr, warp_cuda.face_params_ym(Ms), K, True)),
+            graph_timer(lambda: warp_cuda.warp_affine(frames, Ms)),
+            eager_timer(lambda: warp_cuda.warp_affine_ym_reference(frames, Ms)),
+            eager_timer(lambda: warp_cuda.warp_affine(frames, Ms)),
+            eager_timer(lambda: warp_cuda.resample_ym(frames, pyr, Ms)),
+        )
+    n_out = B * K * 112 * 112
+    res_bytes = (warp_read_bytes(prm, H, W, K, warp_cuda.YM_WIN_X, warp_cuda.YM_WIN_Y)
+                 + Ms.numel() * 4 + prm.numel() * 4 + n_out * 3 * 4)
+    res_bound, res_by = bound_ms(res_bytes, n_out * WARP_OPS_PER_PIXEL)
+    all_bound, all_by = bound_ms(frames.numel() + pyr.numel() + res_bytes,
+                                 5 * pyr.numel() + n_out * WARP_OPS_PER_PIXEL)
+    log(f"warp_ym vs plain, bit for bit: kernel table = face_params_ym on the sweeps "
+        f"({'; '.join(swept)}) and their finite faces' crops; crops raw and xpass_bf16 and "
+        f"the whole warp_affine call (B={B}, K={K}, {H}x{W}, levels {levels}; 2 frames of "
+        f"{odd.shape[1]}x{odd.shape[2]}): max|d| {err:.3g} (bar: torch.equal); warp_affine(default "
+        f"layout) launches: pyramid {counts['warp_xm_pyramid']}, warp_ym {counts['warp_ym']}; "
+        f"device operations traced / kernel launches called: {traced} / {called}")
+    log(f"warp_ym times (B={B}, K={K}, {H}x{W}, raw f32 unless noted; median of 20, in turns): "
+        f"resample kernel (table included) {t_res:.4f} ms | plain (face_params_ym + "
+        f"resample_ym_reference) {t_res_plain:.4f} | bound {res_bound:.4f} ({res_by}); "
+        f"xpass_bf16 kernel {t_bf16:.4f} ms | plain {t_bf16_plain:.4f}; whole warp_affine "
+        f"{t_all:.4f} ms | plain {t_all_plain:.4f} | bound {all_bound:.4f} ({all_by}); eager "
+        f"calls between CUDA events (host gaps included): whole call {t_all_eager:.4f} ms, "
+        f"resample {t_res_eager:.4f} ms")
+    return dict(launches=counts["warp_ym"], max_abs_err=err, ms=t_res, plain_ms=t_res_plain,
+                bound_ms=res_bound, bound_by=res_by, library_ms=None)
 
 
 def _gallery(gen, Q, G, D, dev, dups=0):

@@ -51,6 +51,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "face_table.cuh"
+
 namespace {
 
 constexpr int OUT = 112;
@@ -69,17 +71,8 @@ constexpr int PYR_THREADS = 256;
 
 // ------------------------------------------------------------ the face table
 
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fffffff); }
-// torch.maximum / torch.minimum / torch.clamp propagate NaN
-__device__ __forceinline__ float nan_max(float x, float y) {
-  return (isnan(x) || isnan(y)) ? qnan() : fmaxf(x, y);
-}
-__device__ __forceinline__ float nan_min(float x, float y) {
-  return (isnan(x) || isnan(y)) ? qnan() : fminf(x, y);
-}
-__device__ __forceinline__ float nan_clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
+using face_table::nan_clamp;
+
 __device__ __forceinline__ float nan_to_num(float v) {
   if (isnan(v)) return 0.0f;
   if (isinf(v)) return v > 0.0f ? FLT_MAX : -FLT_MAX;
@@ -91,52 +84,22 @@ __device__ __forceinline__ float fixed(float v, float scale, float lim) {
   return __fmul_rn(rintf(__fmul_rn(v, scale)), 1.0f / scale);
 }
 
-// ops/warp.py::invert_affine, ops/warp_cuda.py::_scaled_inverse and
-// face_params_xm on one face: M is the forward (2, 3) affine, row-major.
+// ops/warp_cuda.py::face_params_xm on one face: M is the forward (2, 3)
+// affine, row-major (the shared part in face_table.cuh).
 __device__ void face_table(const float* M, float* t) {
-  const float a = M[0], b = M[1], tx = M[2], c = M[3], d = M[4], ty = M[5];
-  float det = __fsub_rn(__fmul_rn(a, d), __fmul_rn(b, c));
-  if (fabsf(det) < 1e-12f) det = 1e-12f;
-  const float inv = __fdiv_rn(1.0f, det);
-  const float ia = __fmul_rn(d, inv), ib = __fmul_rn(-b, inv);
-  const float ic = __fmul_rn(-c, inv), id = __fmul_rn(a, inv);
-  const float itx = -__fadd_rn(__fmul_rn(ia, tx), __fmul_rn(ib, ty));
-  const float ity = -__fadd_rn(__fmul_rn(ic, tx), __fmul_rn(id, ty));
-
-  const float span_x = __fadd_rn(__fmul_rn(111.0f, __fadd_rn(fabsf(ia), fabsf(ib))), 2.0f);
-  const float span_y = __fadd_rn(__fmul_rn(111.0f, __fadd_rn(fabsf(ic), fabsf(id))), 2.0f);
-  const float extent = nan_max(span_x, span_y);
-  float ratio = __fmul_rn(extent, 1.0f / 110.0f);  // COVER = 110
-  ratio = isnan(ratio) ? ratio : fmaxf(ratio, 1e-6f);
-  const float level = nan_clamp(ceilf(log2f(ratio)), 0.0f, 3.0f);
-  const float factor = exp2f(level);
-  const float af = __fdiv_rn(ia, factor), bf = __fdiv_rn(ib, factor);
-  const float cf = __fdiv_rn(ic, factor), df = __fdiv_rn(id, factor);
-  const float txf = __fsub_rn(__fdiv_rn(__fadd_rn(itx, 0.5f), factor), 0.5f);
-  const float tyf = __fsub_rn(__fdiv_rn(__fadd_rn(ity, 0.5f), factor), 0.5f);
-
-  const float x_min = nan_clamp(
-      __fadd_rn(__fadd_rn(nan_min(__fmul_rn(af, 111.0f), 0.0f),
-                          nan_min(__fmul_rn(bf, 111.0f), 0.0f)), txf), -1e7f, 1e7f);
-  const float y_min = nan_clamp(
-      __fadd_rn(__fadd_rn(nan_min(__fmul_rn(cf, 111.0f), 0.0f),
-                          nan_min(__fmul_rn(df, 111.0f), 0.0f)), tyf), -1e7f, 1e7f);
-  const float x_lo = nan_clamp(__fmul_rn(floorf(__fmul_rn(x_min, 1.0f / 16.0f)), 16.0f),
-                               0.0f, 528.0f);
-  const float y_lo = nan_clamp(__fmul_rn(floorf(__fmul_rn(y_min, 1.0f / 128.0f)), 128.0f),
-                               0.0f, 512.0f);
-  t[0] = level;
+  const face_table::Scaled f = face_table::scaled_inverse(M);
+  const float x_lo = face_table::origin(f.x_min, 16.0f, 528.0f);
+  const float y_lo = face_table::origin(f.y_min, 128.0f, 512.0f);
+  t[0] = f.level;
   t[1] = x_lo;
   t[2] = y_lo;
-  t[3] = fixed(af, 1048576.0f, 2000.0f);
-  t[4] = fixed(bf, 1048576.0f, 2000.0f);
-  t[5] = fixed(cf, 1048576.0f, 2000.0f);
-  t[6] = fixed(df, 1048576.0f, 2000.0f);
-  t[7] = fixed(__fsub_rn(txf, x_lo), 65536.0f, 30000.0f);
-  t[8] = fixed(__fsub_rn(tyf, y_lo), 65536.0f, 30000.0f);
+  t[3] = fixed(f.a, 1048576.0f, 2000.0f);
+  t[4] = fixed(f.b, 1048576.0f, 2000.0f);
+  t[5] = fixed(f.c, 1048576.0f, 2000.0f);
+  t[6] = fixed(f.d, 1048576.0f, 2000.0f);
+  t[7] = fixed(__fsub_rn(f.tx, x_lo), 65536.0f, 30000.0f);
+  t[8] = fixed(__fsub_rn(f.ty, y_lo), 65536.0f, 30000.0f);
 }
-
-__device__ __forceinline__ int to_int(float v) { return isnan(v) ? 0 : static_cast<int>(v); }
 
 // ------------------------------------------------------------ the pyramid
 
@@ -254,9 +217,9 @@ warp_xm_kernel(const uint8_t* __restrict__ frames, const uint8_t* __restrict__ u
 
   Face f;
   f.a = prm[3]; f.b = prm[4]; f.c = prm[5]; f.d = prm[6]; f.tx = prm[7]; f.ty = prm[8];
-  const int level = min(max(to_int(prm[0]), 0), 3);
-  f.x_lo = min(max(to_int(prm[1]), 0), 528);
-  f.y_lo = min(max(to_int(prm[2]), 0), 512);
+  const int level = face_table::to_int(prm[0], 0, 3);
+  f.x_lo = face_table::to_int(prm[1], 0, 528);
+  f.y_lo = face_table::to_int(prm[2], 0, 512);
   f.hl = H >> level;
   f.wl = W >> level;
   size_t off = 0;

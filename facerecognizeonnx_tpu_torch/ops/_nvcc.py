@@ -2,7 +2,8 @@
 
 Each source is compiled with nvcc for sm_90a into a plain-C shared
 library (no PyTorch headers, so a build takes seconds), named by a hash
-of the source and the flags, in the package's gitignored `_build/`
+of the source, every header of `csrc/` (`*.cuh`, which the sources
+include) and the flags, in the package's gitignored `_build/`
 directory, and loaded with ctypes. A library is built at most once per
 process; a later process reuses the file. Builds of different sources
 may run at once (one lock per source).
@@ -53,7 +54,10 @@ def build_library(
         if source in _libs:
             return _libs[source], ""
         path = CSRC / source
-        tag = hashlib.sha1(path.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        tag = hashlib.sha1(
+            path.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:12]
         so_path = BUILD_DIR / f"{path.stem}_{tag}.so"
         log = ""
         if not so_path.exists():

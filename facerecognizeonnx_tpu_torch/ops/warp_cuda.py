@@ -31,10 +31,10 @@ per face:
 On CUDA tensors the steps run as launches of csrc/warp_xm.cu and
 csrc/warp_ym.cu: `build_pyramid` (levels 1-3; level 0 is the frames
 tensor itself, read in place) counted in `build_pyramid.launches`; the
-x-major resample `resample_xm`, which computes each face's table (step 2-3)
-from its affine in the kernel and returns it beside the crops, counted in
-`warp_affine_xm.launches`; the y-major resample `resample_ym` over a
-`face_params_ym` table, counted in `warp_affine_ym.launches`. For CPU
+x-major resample `resample_xm` and the y-major resample `resample_ym`,
+each of which computes each face's table (steps 2-3) from its affine in
+the kernel and returns it beside the crops, counted in
+`warp_affine_xm.launches` / `warp_affine_ym.launches`. For CPU
 tensors `warp_affine_xm` / `warp_affine_ym` run the plain versions
 `warp_affine_xm_reference` / `warp_affine_ym_reference` (and
 `build_pyramid` runs `build_pyramid_reference`). A CUDA tensor never
@@ -392,7 +392,7 @@ def _bind_xm(lib: ctypes.CDLL) -> None:
 
 def _bind_ym(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.warp_ym_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.warp_ym_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.warp_ym_launch.restype = ctypes.c_int
     lib.warp_ym_error_string.argtypes = [ctypes.c_int]
     lib.warp_ym_error_string.restype = ctypes.c_char_p
@@ -476,31 +476,33 @@ def resample_xm(
 
 
 def resample_ym(
-    frames_u8: torch.Tensor, pyr: torch.Tensor, prm: torch.Tensor, K: int,
-    xpass_bf16: bool = False,
-) -> torch.Tensor:
-    """Launch csrc/warp_ym.cu on CUDA tensors: the kernel counterpart of
-    `resample_ym_reference`, same arguments and output. Counts the
-    launch in `warp_affine_ym.launches`."""
+    frames_u8: torch.Tensor, pyr: torch.Tensor, Ms: torch.Tensor, xpass_bf16: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/warp_ym.cu on CUDA tensors: frames (level 0), their
+    levels 1-3 (`build_pyramid`) and the (B, K, 2, 3) forward affines.
+    The launch computes each face's table from Ms (the float32
+    operations of `face_params_ym`) and resamples. Returns (crops as
+    `resample_ym_reference` gives them, the (B·K, 9) table the kernel
+    used). Counts the launch in `warp_affine_ym.launches`."""
+    K = Ms.shape[1]
     B, H, W, dev = _check_levels(frames_u8, pyr, K)
+    _check_inputs(frames_u8, Ms, None)
     N = B * K
-    if (
-        prm.dtype != torch.float32 or tuple(prm.shape) != (N, N_PARAMS)
-        or not prm.is_contiguous() or prm.device != dev
-    ):
-        raise InvalidInputError(f"face table must be contiguous float32 ({N}, {N_PARAMS})")
+    ms = Ms.to(torch.float32).contiguous()
     out = torch.empty((B, K, OUT, OUT, 3), dtype=torch.float32, device=dev)
+    table = torch.empty((N, N_PARAMS), dtype=torch.float32, device=dev)
     if N == 0:
-        return out
+        return out, table
     lib, _ = build_library_ym()
     with torch.cuda.device(dev):
         rc = lib.warp_ym_launch(
-            frames_u8.data_ptr(), pyr.data_ptr(), prm.data_ptr(), out.data_ptr(), N, K,
-            H, W, int(bool(xpass_bf16)), torch.cuda.current_stream(dev).cuda_stream,
+            frames_u8.data_ptr(), pyr.data_ptr(), ms.data_ptr(), out.data_ptr(),
+            table.data_ptr(), N, K, H, W, int(bool(xpass_bf16)),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib.warp_ym_error_string, rc, "warp_ym")
     warp_affine_ym.launches += 1
-    return out
+    return out, table
 
 
 def warp_affine_xm(
@@ -529,15 +531,14 @@ def warp_affine_ym(
     """(B, H, W, 3) uint8 frames + (B, K, 2, 3) forward affines →
     (B, K, 112, 112, 3) raw f32 BGR crops through the y-major window.
 
-    CUDA tensors launch csrc/warp_ym.cu (and count the launch); CPU
+    CUDA tensors launch the pyramid kernel and csrc/warp_ym.cu, which
+    computes the face table itself (2 launches, each counted); CPU
     tensors run `warp_affine_ym_reference`."""
     if frames_u8.device.type == "cpu":
         return warp_affine_ym_reference(frames_u8, Ms, xpass_bf16)
     _check_inputs(frames_u8, Ms, None)
     frames_u8 = frames_u8.contiguous()
-    return resample_ym(
-        frames_u8, build_pyramid(frames_u8), face_params_ym(Ms), Ms.shape[1], xpass_bf16
-    )
+    return resample_ym(frames_u8, build_pyramid(frames_u8), Ms, xpass_bf16)[0]
 
 
 def warp_affine(

@@ -249,4 +249,6 @@ def test_kernel_launchers_take_cuda_tensors_only():
     with pytest.raises(InvalidInputError, match="CUDA"):
         warp_cuda.resample_xm(frames, pyr, Ms)
     with pytest.raises(InvalidInputError, match="CUDA"):
-        warp_cuda.resample_ym(frames, pyr, warp_cuda.face_params_ym(Ms), 2)
+        warp_cuda.resample_ym(frames, pyr, Ms)
+    with pytest.raises(InvalidInputError, match="CUDA"):
+        warp_cuda.resample_ym(frames, pyr, Ms, xpass_bf16=True)

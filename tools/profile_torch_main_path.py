@@ -16,7 +16,7 @@ profiles STEPS calls of `frames_to_matches` with torch.profiler and prints:
 
 Usage, from the repo root on a GPU host:
 
-    python3 tools/profile_torch_main_path.py [TRACE.json] [--gallery]
+    python3 tools/profile_torch_main_path.py [TRACE.json] [--gallery] [--warp-ym]
 
 With a path, the chrome trace of the profiled steps is written there.
 With --gallery it also splits the gallery top-k kernel's time
@@ -27,6 +27,20 @@ one that skips the selection (its results are wrong: it times the
 product loop, the copies and the other launches) and one that counts,
 per block, the clock64 cycles of the product loop and of the selection;
 both are timed against the real kernel, CUDA-graph replays in turns.
+
+With --warp-ym it splits the warp kernels' time at B=16 frames of 640x640,
+K=8 faces each over levels 0-3 (chip_smoke.py phase 3's frames and
+matrices): it builds, in warp_variants/ beside the trace (or under the
+working directory), a copy of csrc/warp_ym.cu and one of csrc/warp_xm.cu
+that count per block (per team of 224 threads for warp_ym) the clock64
+cycles of four parts: the table (and, for warp_ym, the bands' boxes), the
+boxes and the staging wait (for warp_xm thread 0's box, the copies and
+their wait; for warp_ym the copies issued for the next band, the wait for
+this one's and the team barriers), the gather, and the stores; and a copy
+of csrc/warp_xm.cu whose staging budget is 16 KB instead of 64 KB (up to 5
+blocks per SM instead of 3). All are timed against the real kernels,
+CUDA-graph replays in turns, and the crops of each copy are held against
+the real kernel's.
 """
 
 import os
@@ -125,9 +139,11 @@ def main() -> int:
     if paths:
         os.makedirs(os.path.dirname(os.path.abspath(paths[0])), exist_ok=True)
         prof.export_chrome_trace(paths[0])
+    out = os.path.dirname(os.path.abspath(paths[0])) if paths else "."
     if "--gallery" in sys.argv:
-        out = os.path.dirname(os.path.abspath(paths[0])) if paths else "."
         gallery_split(dev, os.path.join(out, "gallery_variants"))
+    if "--warp-ym" in sys.argv:
+        warp_split(dev, os.path.join(out, "warp_variants"))
     return 0
 
 
@@ -219,6 +235,169 @@ def gallery_split(dev, out_dir: str) -> None:
         print(f"  k={k}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(names, times))
               + f"; blocks {len(used)}: product loop {used[:, 0].mean():.0f} cycles, "
               f"selection {used[:, 1].mean():.0f} cycles")
+
+
+
+# ---------------------------------------------------------------- the warp split
+
+DBG = ("__device__ long long g_dbg[4096][5];\n", 'extern "C" int dbg_read(long long* h) {\n'
+       "  return (int)cudaMemcpyFromSymbol(h, g_dbg, sizeof(g_dbg));\n}\n")
+
+
+def _edit(text: str, pairs) -> str:
+    for old, new in pairs:
+        assert text.count(old) == 1, f"the source changed shape at: {old[:60]!r}"
+        text = text.replace(old, new)
+    return text
+
+
+def _counted_ym(src: str) -> str:
+    """csrc/warp_ym.cu counting, per team of 224 threads (its thread 0):
+    table + boxes, staging wait and barriers, gather, stores, and the
+    whole kernel."""
+    sync_in = "    team_sync(team);  // unit u's box has landed, from every team thread's copies\n"
+    store = "  float* dst = out + (static_cast<size_t>(i) * OUT + j0) * 3;\n"
+    store_end = "  store16(dst + 8, y[8], y[9], y[10], y[11]);\n}\n"
+    t = _edit(src, [
+        ("namespace {\n\nconstexpr int OUT", DBG[0] + "namespace {\n\nconstexpr int OUT"),
+        ("const int* rowoff, int i0, float* out, int t) {",
+         "const int* rowoff, int i0, float* out, int t, long long* acc) {"),
+        (store, "  const long long c_s = clock64();\n" + store),
+        (store_end, store_end[:-2] + "  *acc += clock64() - c_s;\n}\n"),
+        ("  const int owned = (n_faces - static_cast<int>(blockIdx.x) + grid - 1) / grid;\n",
+         "  const int owned = (n_faces - static_cast<int>(blockIdx.x) + grid - 1) / grid;\n"
+         "  const long long c_t0 = clock64();\n  long long c_wait = 0, c_gat = 0, c_st = 0;\n"),
+        ("  __syncthreads();\n\n  // units u", "  __syncthreads();\n"
+         "  const long long c_tab = clock64() - c_t0;\n\n  // units u"),
+        ("    const int nu = u + TEAMS;\n", "    const long long c_a = clock64();\n"
+         "    const int nu = u + TEAMS;\n"),
+        (sync_in, sync_in + "    const long long c_b = clock64();\n    c_wait += c_b - c_a;\n"),
+        ("i0, dst, t);\n    else", "i0, dst, t, &c_st);\n    else"),
+        ("i0, dst, t);\n  }\n}\n", "i0, dst, t, &c_st);\n    c_gat += clock64() - c_b;\n  }\n"
+         "  if (t == 0) {\n    long long* d = g_dbg[blockIdx.x * TEAMS + team];\n"
+         "    d[0] = c_tab; d[1] = c_wait; d[2] = c_gat - c_st; d[3] = c_st;\n"
+         "    d[4] = clock64() - c_t0;\n  }\n}\n"),
+    ])
+    return t + "\n" + DBG[1]
+
+
+def _counted_xm(src: str) -> str:
+    """csrc/warp_xm.cu counting, per block (thread 0): table, box + staging
+    wait, gather, stores, and the whole kernel."""
+    t = _edit(src, [
+        ("namespace {\n\nconstexpr int OUT", DBG[0] + "namespace {\n\nconstexpr int OUT"),
+        ("  const bool live = valid == nullptr || valid[n] != 0;\n",
+         "  const bool live = valid == nullptr || valid[n] != 0;\n"
+         "  const long long c_t0 = clock64();\n"),
+        ("  __syncthreads();\n\n  Face f;", "  __syncthreads();\n"
+         "  const long long c_t1 = clock64();\n\n  Face f;"),
+        ("  // this thread: 8 consecutive pixels", "  const long long c_t2 = clock64();\n"
+         "  // this thread: 8 consecutive pixels"),
+        ("  const size_t o = (static_cast<size_t>(n) * PIX",
+         "  const long long c_t3 = clock64();\n  const size_t o = (static_cast<size_t>(n) * PIX"),
+        ("    for (int q = 0; q < 6; ++q) dst[q] = v[q];\n  }\n}\n",
+         "    for (int q = 0; q < 6; ++q) dst[q] = v[q];\n  }\n  if (threadIdx.x == 0) {\n"
+         "    long long* d = g_dbg[blockIdx.y * N_BANDS + blockIdx.x];\n"
+         "    const long long c_t4 = clock64();\n"
+         "    d[0] = c_t1 - c_t0; d[1] = c_t2 - c_t1; d[2] = c_t3 - c_t2; d[3] = c_t4 - c_t3;\n"
+         "    d[4] = c_t4 - c_t0;\n  }\n}\n"),
+    ])
+    return t + "\n" + DBG[1]
+
+
+def warp_split(dev, out_dir: str) -> None:
+    import ctypes
+    import re
+    import subprocess
+
+    import numpy as np
+    import torch
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from chip_smoke import EPI, graph_timer, in_turns, spread_matrices
+    from facerecognizeonnx_tpu_torch.ops import _nvcc, warp_cuda
+
+    xm_src = (_nvcc.CSRC / "warp_xm.cu").read_text()
+    ym_src = (_nvcc.CSRC / "warp_ym.cu").read_text()
+    stage = "constexpr int STAGE_BYTES = 64 * 1024;"
+    texts = {"ym_counted": _counted_ym(ym_src), "xm_counted": _counted_xm(xm_src),
+             "xm_stage16k": _edit(xm_src, [(stage, "constexpr int STAGE_BYTES = 16 * 1024;")])}
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu = os.path.join(out_dir, name + ".cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [os.path.join(CUDA_HOME, "bin", "nvcc"), *_nvcc.NVCC_FLAGS, "-I", str(_nvcc.CSRC),
+             "-o", cu[:-3] + ".so", cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs = {"ym": warp_cuda.build_library_ym()[0], "xm": warp_cuda.build_library()[0]}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, name + ".so"))
+        (warp_cuda._bind_ym if name.startswith("ym") else warp_cuda._bind_xm)(libs[name])
+        if name.endswith("counted"):
+            libs[name].dbg_read.argtypes = [ctypes.c_void_p]
+
+    rng = np.random.default_rng(0)
+    B, K, H, W = 16, 8, 640, 640
+    N = B * K
+    frames = torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev)
+    Ms = torch.from_numpy(spread_matrices(rng, B, K, H, W)).to(dev)
+    pyr = warp_cuda.build_pyramid(frames)
+
+    def stream():  # the stream a CUDA-graph capture records
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def ym(lib):
+        out = torch.empty((B, K, 112, 112, 3), device=dev)
+        table = torch.empty((N, 9), device=dev)
+        rc = lib.warp_ym_launch(frames.data_ptr(), pyr.data_ptr(), Ms.data_ptr(), out.data_ptr(),
+                                table.data_ptr(), N, K, H, W, 0, stream())
+        assert rc == 0, lib.warp_ym_error_string(rc)
+        return out
+
+    def xm(lib):
+        out = torch.empty((B, K, 112, 112, 3), dtype=torch.bfloat16, device=dev)
+        table = torch.empty((N, 9), device=dev)
+        rc = lib.warp_xm_launch(frames.data_ptr(), pyr.data_ptr(), Ms.data_ptr(), None,
+                                out.data_ptr(), table.data_ptr(), N, K, H, W, 1, EPI[0],
+                                1.0 / EPI[1], stream())
+        assert rc == 0, lib.warp_xm_error_string(rc)
+        return out
+
+    calls = {"ym": ym, "ym_counted": ym, "xm": xm, "xm_counted": xm, "xm_stage16k": xm}
+    for name, fn in calls.items():
+        same = torch.equal(fn(libs[name]), fn(libs[name[:2]]))
+        assert same, f"{name} crops differ from the real kernel's"
+    names = list(calls)
+    times = in_turns(*[graph_timer(lambda n=n: calls[n](libs[n])) for n in names])
+    print(f"warp split (B={B}, K={K}, {H}x{W}, levels 0-3; CUDA-graph replays, median of 20 in "
+          f"turns; crops of every copy equal the real kernel's): "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(names, times)))
+    parts = ("table", "box + staging wait", "gather", "stores", "whole")
+    for name, unit in (("ym_counted", "team"), ("xm_counted", "block")):
+        buf = np.zeros((4096, 5), np.int64)
+        calls[name](libs[name])
+        torch.cuda.synchronize()
+        assert libs[name].dbg_read(buf.ctypes.data) == 0
+        used = buf[buf[:, 4] > 0]
+        slow = used[used[:, 4].argmax()]
+        print(f"  {name}: clock64 cycles per {unit}, mean over {len(used)}: " + ", ".join(
+            f"{p} {used[:, k].mean():.0f}" for k, p in enumerate(parts))
+            + "; the slowest: " + ", ".join(f"{p} {slow[k]}" for k, p in enumerate(parts)))
+        if name == "ym_counted":  # team TEAMS·f + m of block f: face f (one face per block here)
+            teams = int(re.search(r"constexpr int TEAMS = (\d+);", ym_src).group(1))
+            table = warp_cuda.face_params_ym(Ms).cpu().numpy()
+            whole = buf[: teams * N, 4].reshape(N, teams).max(axis=1)
+            for f in np.argsort(-whole)[:8]:
+                a, b = table[f, 3], table[f, 4]
+                print(f"    face {f}: {whole[f]} cycles, level {table[f, 0]:.0f}, "
+                      f"{np.hypot(a, b):.3f} window px per output px, angle "
+                      f"{np.degrees(np.arctan2(b, a)):.0f} deg")
+            print(f"    median face {np.median(whole):.0f} cycles")
 
 
 if __name__ == "__main__":
