@@ -1,12 +1,15 @@
 """Central configuration for the PyTorch face pipeline.
 
 Same fields and defaults as `facerecognizeonnx_tpu.config.PipelineConfig`
-so a config can be read by either package. `warp_impl` names the port's
-warp implementations:
+so a config can be read by either package. `warp_impl` takes the
+reference's names:
 
   "gather" — exact cv2-bilinear parity (4 gather indices/pixel), any device
-  "cuda"   — the hand-written Hopper kernel (ops/warp_cuda.py); a CPU
-             tensor takes its plain-torch version
+  "banded" — per-row band gather + hat-weight matmuls (ops/warp_banded.py)
+  "cuda"   — the hand-written Hopper kernel (ops/warp_cuda.py, x-major
+             window); a CPU tensor takes its plain-torch version
+  "pallas" — the reference's name for its x-major TPU kernel: the same
+             semantics, so it runs "cuda"
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-WARP_IMPLS = ("gather", "cuda")
+WARP_IMPLS = ("gather", "banded", "cuda", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)

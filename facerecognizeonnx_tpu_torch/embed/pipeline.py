@@ -18,6 +18,7 @@ from facerecognizeonnx_tpu_torch.models.layers import l2_normalize
 from facerecognizeonnx_tpu_torch.ops.image import normalize_to_rgb, resize_bilinear
 from facerecognizeonnx_tpu_torch.ops.umeyama import ARCFACE_DST_5PTS, umeyama
 from facerecognizeonnx_tpu_torch.ops.warp import crop_resize_affine, warp_affine_batch
+from facerecognizeonnx_tpu_torch.ops.warp_banded import warp_affine_banded
 from facerecognizeonnx_tpu_torch.ops.warp_cuda import warp_affine_xm
 
 
@@ -50,19 +51,23 @@ def align_faces_batch(
     frames: (B, H, W, 3); kps: (B, K, 5, 2); boxes: (B, K, 4).
     normalized=True returns embed-ready (px-mean)/scale RGB instead of
     raw BGR crops (bf16 from the CUDA warp's fused epilogue, f32 from
-    the gather warp). valid (B, K): invalid slots are zeros in the
-    output space (the CUDA warp skips their reads)."""
+    the gather and banded warps). valid (B, K): invalid slots are zeros
+    in the output space (the CUDA warp skips their reads). warp_impl
+    "pallas" runs the CUDA kernel, which has its semantics."""
     size = cfg.rec_input_size
     h, w = frames_u8.shape[1], frames_u8.shape[2]
     M_sel = _align_matrices(kps, boxes, h, w, size)
-    if cfg.warp_impl == "cuda":
+    if cfg.warp_impl in ("cuda", "pallas"):
         return warp_affine_xm(
             frames_u8.to(torch.uint8),
             M_sel,
             epilogue=(cfg.pixel_mean, cfg.pixel_scale) if normalized else None,
             valid=valid,
         )
-    crops = warp_affine_batch(frames_u8, M_sel, size, size)
+    if cfg.warp_impl == "banded":
+        crops = warp_affine_banded(frames_u8.to(torch.uint8), M_sel, size)
+    else:
+        crops = warp_affine_batch(frames_u8, M_sel, size, size)
     if normalized:
         crops = normalize_to_rgb(crops, cfg.pixel_mean, cfg.pixel_scale)
     if valid is not None:

@@ -20,3 +20,8 @@ class KernelError(FrtError, RuntimeError):
 
 class GalleryError(FrtError, ValueError):
     """Gallery bank misuse (dim mismatch, missing file)."""
+
+
+class NativeRuntimeUnavailable(FrtError, RuntimeError):
+    """The native host runtime (runtime/cc/frt_runtime.cc) could not be
+    built or loaded."""

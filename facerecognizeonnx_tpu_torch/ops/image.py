@@ -2,7 +2,8 @@
 
 Port of `facerecognizeonnx_tpu/ops/image.py`: the same cv2 conventions
 (float min-scale, truncated resized size, top-left zero pad, BGR→RGB,
-(px - 127.5) / 128), on torch tensors of any device.
+(px - 127.5) / 128), on torch tensors of any device; and
+`letterbox_host`, the host letterbox of the service and the video path.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from facerecognizeonnx_tpu_torch.runtime import native
 
 
 def letterbox_params(height: int, width: int, target: int) -> Tuple[float, int, int]:
@@ -57,6 +60,16 @@ def letterbox(image: torch.Tensor, target: int) -> Tuple[torch.Tensor, float]:
     padded = torch.zeros((target, target, 3), dtype=torch.float32, device=image.device)
     padded[:new_h, :new_w] = resize_bilinear(image, new_h, new_w)
     return padded, scale
+
+
+def letterbox_host(image_bgr: np.ndarray, target: int) -> Tuple[np.ndarray, float]:
+    """Letterbox on the host → ((target, target, 3) uint8, scale): the
+    native runtime's letterbox (rounds) where it builds, as the reference
+    serves, else `letterbox` on the CPU, truncated to uint8."""
+    if native.native_available():
+        return native.letterbox_native(image_bgr, target)
+    padded, scale = letterbox(torch.from_numpy(np.ascontiguousarray(image_bgr)), target)
+    return padded.numpy().astype(np.uint8), scale
 
 
 def normalize_to_rgb(

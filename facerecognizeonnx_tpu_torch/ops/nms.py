@@ -3,8 +3,14 @@
 Port of `facerecognizeonnx_tpu/ops/nms.py`: greedy suppression in score
 order, computed as the same fixpoint — keep[i] = no kept higher-scoring
 box overlaps i — iterated until no frame's keep mask changes. The batch
-dimension is written out instead of vmapped. Each iteration ends in one
-host sync (the `.any()` that decides whether to go on).
+dimension is written out instead of vmapped. The loop runs
+`ITERS_PER_CHECK` iterations between host checks: iterating past the
+fixpoint changes nothing, so the result is exact, and a call whose
+suppression chains are shorter syncs with the host once. (The
+reference's loop runs on the device, `lax.while_loop`; a loop without a
+host check is ROADMAP.md Queue A item 18b.) `nms_fixed.iterations`
+counts calls by the iterations the reference's loop would run (the
+changing ones plus the one that confirms the fixpoint).
 
 `int_rects=True` computes IoU on integer-truncated rects, as a C int
 cast does: x=trunc(x1), y=trunc(y1), w=trunc(x2-x1), h=trunc(y2-y1).
@@ -12,9 +18,17 @@ cast does: x=trunc(x1), y=trunc(y1), w=trunc(x2-x1), h=trunc(y2-y1).
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Optional, Tuple
 
 import torch
+
+# fixpoint iterations between two host checks. chip_smoke.py's drive on
+# the card saw 1 or 2 per call, and the reference puts real face layouts
+# at 2-4, so a call checks the host once
+ITERS_PER_CHECK = 4
+_iterations_lock = threading.Lock()
 
 
 def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
@@ -82,10 +96,22 @@ def nms_fixed(
     # suppressor[b, j, i]: j ranks strictly above i and overlaps it
     suppressor = torch.triu(iou > iou_threshold, diagonal=1)
 
-    keep = valid_s
+    keep, n_changed = valid_s, 0
     while True:
-        new_keep = valid_s & ~(suppressor & keep[:, :, None]).any(dim=1)
-        if not bool((new_keep != keep).any()):
+        changed = []
+        for _ in range(ITERS_PER_CHECK):
+            new_keep = valid_s & ~(suppressor & keep[:, :, None]).any(dim=1)
+            changed.append((new_keep != keep).any())
+            keep = new_keep
+        # the changing iterations come first; once one changes nothing,
+        # none after it does. One host sync per ITERS_PER_CHECK iterations.
+        batch_changed = int(torch.stack(changed).sum())
+        n_changed += batch_changed
+        if batch_changed < ITERS_PER_CHECK:
             break
-        keep = new_keep
+    with _iterations_lock:
+        nms_fixed.iterations[n_changed + 1] += 1
     return boxes_s, scores_s, keep, order
+
+
+nms_fixed.iterations = collections.Counter()

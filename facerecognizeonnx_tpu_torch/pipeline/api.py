@@ -15,9 +15,13 @@ numpy on the host; each method runs its program on `device` (the card
 unless the caller asks for the CPU). PyTorch runs eagerly, so there is
 no per-shape compile cache.
 
+`host_letterbox=True` letterboxes `detect_raw`'s image on the host with
+the native runtime (`runtime/native.py`), and `detect_files` reads,
+decodes and letterboxes files with its threaded loader, as the
+reference does.
+
 Not ported yet, and raising NotImplementedError: `.onnx` weights
-(ROADMAP.md Queue A item 15), w8a8 `quantize` (item 12), `detect_files`
-and `host_letterbox=True` (item 18: the native image runtime).
+(ROADMAP.md Queue A item 15) and w8a8 `quantize` (item 12).
 """
 
 from __future__ import annotations
@@ -33,18 +37,16 @@ from facerecognizeonnx_tpu_torch.detect.decode import decode_outputs
 from facerecognizeonnx_tpu_torch.detect.pipeline import detect_program, postprocess
 from facerecognizeonnx_tpu_torch.embed.pipeline import embed_program, embed_simple_program
 from facerecognizeonnx_tpu_torch.errors import ModelLoadError
+from facerecognizeonnx_tpu_torch.io.imageio import imread
 from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER, arcface, scrfd
 from facerecognizeonnx_tpu_torch.models.arcface import IRESNET_SPECS
 from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
+from facerecognizeonnx_tpu_torch.runtime import native
 from facerecognizeonnx_tpu_torch.types import Detections, FaceBox, face_boxes_to_arrays
 from facerecognizeonnx_tpu_torch.utils import checkpoint
 
 UNPORTED_ONNX = "ONNX weights are not ported yet (ROADMAP.md Queue A item 15)"
 UNPORTED_QUANT = "w8a8 recognizer quantization is not ported yet (ROADMAP.md Queue A item 12)"
-UNPORTED_NATIVE = (
-    "the native host image runtime (host_letterbox, detect_files) is not ported "
-    "yet (ROADMAP.md Queue A item 18)"
-)
 
 
 def _load_tree(path: Optional[str], init_fn):
@@ -131,12 +133,24 @@ class FaceDetector:
         score_threshold: Optional[float] = None,
         nms_threshold: Optional[float] = None,
     ) -> Detections:
-        """Full-precision fixed-K Detections (tensors on the device)."""
-        if self.cfg.host_letterbox:
-            raise NotImplementedError(UNPORTED_NATIVE)
+        """Full-precision fixed-K Detections (tensors on the device).
+
+        With cfg.host_letterbox and an image not already at the detector's
+        size, the native runtime letterboxes it on the host (rounding) and
+        the coordinates are scaled back after NMS, as in the reference;
+        where the runtime cannot be built, the device letterbox runs."""
+        size = self.cfg.det_input_size
+        scale = 1.0
+        if self.cfg.host_letterbox and image.shape[:2] != (size, size) and \
+                native.native_available():
+            image, scale = native.letterbox_native(image, size)
         img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         with torch.no_grad():
-            return detect_program(self.params, img, self.cfg, score_threshold, nms_threshold)
+            dets = detect_program(self.params, img, self.cfg, score_threshold, nms_threshold)
+        if scale == 1.0:
+            return dets
+        inv = 1.0 / scale
+        return dets._replace(boxes=dets.boxes * inv, kps=dets.kps * inv)
 
     def detect_batch(self, images: Sequence[np.ndarray]) -> List[List[FaceBox]]:
         """Batched detect: same-shaped BGR frames run as one batch
@@ -152,30 +166,78 @@ class FaceDetector:
             if img is None or img.size == 0 or img.ndim != 3:
                 continue
             buckets.setdefault(img.shape, []).append(i)
-        cfg = self.cfg
-        dtype = cfg.torch_compute_dtype
+        size = self.cfg.det_input_size
         for idxs in buckets.values():
             frames = torch.from_numpy(np.stack([images[i] for i in idxs])).to(self.device)
             with torch.no_grad():
-                padded = []
-                for f in frames:
-                    p, scale = letterbox(f, cfg.det_input_size)
-                    padded.append(p)
-                x = normalize_to_rgb(
-                    torch.stack(padded), cfg.pixel_mean, cfg.pixel_scale, dtype=dtype
-                )
-                scores, boxes, kps = decode_outputs(
-                    self.params(x, dtype), cfg.det_input_size, cfg.num_anchors
-                )
-                scales = torch.full((len(idxs),), scale, dtype=torch.float32,
-                                    device=self.device)
-                dets = postprocess(scores, boxes, kps, scales, cfg)
+                letterboxed = [letterbox(f, size) for f in frames]
+            scale = letterboxed[0][1]
+            dets = self._detect_letterboxed(
+                torch.stack([p for p, _ in letterboxed]),
+                torch.full((len(idxs),), scale, dtype=torch.float32, device=self.device),
+            )
             for row, i in enumerate(idxs):
                 results[i] = _int_rects(Detections(*(t[row] for t in dets)).to_face_boxes())
         return results
 
-    def detect_files(self, paths, batch_size: int = 32, threads: int = 1):
-        raise NotImplementedError(UNPORTED_NATIVE)
+    def _detect_letterboxed(self, frames: torch.Tensor, scales: torch.Tensor) -> Detections:
+        """(B, S, S, 3) letterboxed BGR frames (uint8 or float) and their
+        (B,) scales → Detections in original pixels (/scale before NMS)."""
+        cfg = self.cfg
+        dtype = cfg.torch_compute_dtype
+        with torch.no_grad():
+            x = normalize_to_rgb(frames, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
+            scores, boxes, kps = decode_outputs(
+                self.params(x, dtype), cfg.det_input_size, cfg.num_anchors
+            )
+            return postprocess(scores, boxes, kps, scales, cfg)
+
+    def detect_files(
+        self, paths: Sequence[str], batch_size: int = 32, threads: int = 1
+    ) -> List[List[FaceBox]]:
+        """Detection over image files. The native loader reads, decodes
+        and letterboxes the files on `threads` host threads while the
+        device runs fixed-size batches of `batch_size` (a partial last
+        batch is zero-padded, its pad rows dropped). A FaceBox list per
+        file, `detect()` semantics (/scale before NMS); [] for a file
+        that cannot be read or decoded. Without the native codecs it
+        runs `imread` + `detect_batch`."""
+        if self.params is None:
+            print("Model not loaded!")
+            return [[] for _ in paths]
+        if not native.codecs_available():
+            return self.detect_batch([imread(p) for p in paths])
+        size = self.cfg.det_input_size
+        results: List[List[FaceBox]] = [[] for _ in paths]
+        frames = np.zeros((batch_size, size, size, 3), np.uint8)
+        scales = np.ones(batch_size, np.float32)
+        idxs: List[int] = []
+
+        def flush():
+            if not idxs:
+                return
+            dets = self._detect_letterboxed(
+                torch.from_numpy(frames).to(self.device), torch.from_numpy(scales).to(self.device)
+            )
+            for row, i in enumerate(idxs):
+                results[i] = _int_rects(Detections(*(t[row] for t in dets)).to_face_boxes())
+            frames[:] = 0
+            scales[:] = 1.0
+            idxs.clear()
+
+        with native.NativeImageLoader(
+            paths, size, threads=threads, capacity=max(8, 2 * batch_size)
+        ) as loader:
+            for idx, frame, scale in loader:
+                if frame is None:
+                    continue
+                frames[len(idxs)] = frame
+                scales[len(idxs)] = scale
+                idxs.append(idx)
+                if len(idxs) == batch_size:
+                    flush()
+        flush()
+        return results
 
 
 class FaceRecognizer:

@@ -104,8 +104,8 @@ def frames_to_matches(
     bank_padded: (Gpad, D) L2-normalized gallery rows, zero-padded to a
     size bucket; rows ≥ n_rows are masked to sim −1 before the top-k.
     Returns (Detections, (B, K, D) feats, (B, K, top_k) sims on the
-    (cos+1)/2 scale, (B, K, top_k) int64 row indices); masked entries
-    carry sim −1."""
+    (cos+1)/2 scale, (B, K, top_k) int32 row indices, as `lax.top_k`
+    gives them); masked entries carry sim −1."""
     dets, feats = frames_to_features(
         det_model, rec_model, frames_u8, cfg, max_faces_embed, compute_dtype,
         valid_cap,
@@ -115,4 +115,4 @@ def frames_to_matches(
     mask = torch.arange(bank_padded.shape[0], device=sims.device)[None, :] < n_rows
     sims = torch.where(mask, sims, torch.full_like(sims, -1.0))
     v, i = topk_stable(sims, top_k)
-    return dets, feats, v.reshape(b, k, top_k), i.reshape(b, k, top_k)
+    return dets, feats, v.reshape(b, k, top_k), i.to(torch.int32).reshape(b, k, top_k)

@@ -2,15 +2,21 @@
 
 Port of `facerecognizeonnx_tpu/pipeline/service.py` (single device).
 Concurrent callers submit frames; a worker thread coalesces them into
-micro-batches (letterbox on the host → detect + align + embed on the
-device → gallery search) and resolves their futures. The worker is
-pipelined one batch deep: batch N resolves right after batch N+1 is
-dispatched, or at once when the queue is empty.
+micro-batches (letterbox on the host, with the native runtime's
+`letterbox_native` where it builds, as the reference does → detect +
+align + embed on the device → gallery search) and resolves their
+futures. The worker is pipelined one batch deep: batch N resolves right
+after batch N+1 is dispatched, or at once when the queue is empty.
 
   default            two dispatches: `frames_to_features`, then
                      `GalleryBank.search` on the host side
   fuse_search=True   one dispatch: `frames_to_matches` against the bank's
                      power-of-two padded device copy
+  adaptive_embed     either mode through the occupancy-adaptive
+                     `BucketedEmbedPipeline` (pipeline/bucketed.py): the
+                     embed packs the detected faces of the micro-batch
+                     into a bucket sized by recent occupancy; pad frames
+                     of a partial batch are left out of the occupancy
 
 Each micro-batch is answered against the bank version taken once at its
 dispatch (names, rows and length from one snapshot), so a bank that
@@ -22,8 +28,8 @@ co-riders before dispatching a partial batch), max_faces (embed slots
 per frame), search_top_k (the fused program's width), valid_cap (a
 benchmark control, see `pipeline.fused.detect_topk`).
 
-Not ported yet, and raising NotImplementedError: sharded, aot, mesh and
-adaptive_embed (ROADMAP.md Queue A items 11, 16 and 18).
+Not ported yet, and raising NotImplementedError: sharded, aot and mesh
+(ROADMAP.md Queue A items 16 and 18b).
 """
 
 from __future__ import annotations
@@ -41,14 +47,14 @@ import torch
 
 from facerecognizeonnx_tpu_torch.config import PipelineConfig, resolve_device
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
-from facerecognizeonnx_tpu_torch.ops.image import letterbox
+from facerecognizeonnx_tpu_torch.ops.image import letterbox_host
+from facerecognizeonnx_tpu_torch.pipeline.bucketed import BucketedEmbedPipeline
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_features, frames_to_matches
 
 UNPORTED = {
     "sharded": "sharded gallery rows (ROADMAP.md Queue A item 16)",
     "mesh": "data-parallel serving over a mesh (ROADMAP.md Queue A item 16)",
-    "aot": "ahead-of-time bundles (ROADMAP.md Queue A item 18)",
-    "adaptive_embed": "the occupancy-adaptive bucketed embed (ROADMAP.md Queue A item 11)",
+    "aot": "ahead-of-time bundles (ROADMAP.md Queue A item 18b)",
 }
 
 
@@ -90,8 +96,7 @@ class IdentifyService:
     ):
         """det_params / arc_params: the SCRFD and IResNet modules (e.g.
         `FaceDetector.params`, `FaceRecognizer.params`) on `device`."""
-        for name, value in (("sharded", sharded), ("aot", aot), ("mesh", mesh),
-                            ("adaptive_embed", adaptive_embed)):
+        for name, value in (("sharded", sharded), ("aot", aot), ("mesh", mesh)):
             if value:
                 raise NotImplementedError(f"{UNPORTED[name]} is not ported yet")
         self.device = resolve_device(device)
@@ -104,6 +109,12 @@ class IdentifyService:
         self.fuse_search = fuse_search
         self.search_top_k = search_top_k
         self.valid_cap = valid_cap
+        self.adaptive = adaptive_embed
+        if adaptive_embed:
+            self._bucketed = BucketedEmbedPipeline(
+                det_params, arc_params, cfg, max_faces_embed=max_faces, valid_cap=valid_cap,
+                search_top_k=search_top_k if fuse_search else None, device=self.device,
+            )
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._batches_run = 0
         self._requests_served = 0
@@ -149,10 +160,7 @@ class IdentifyService:
     # ------------------------------------------------------------- worker
 
     def _letterbox(self, image: np.ndarray) -> Tuple[np.ndarray, float]:
-        padded, scale = letterbox(
-            torch.from_numpy(np.ascontiguousarray(image)), self.cfg.det_input_size
-        )
-        return padded.numpy().astype(np.uint8), scale
+        return letterbox_host(image, self.cfg.det_input_size)
 
     def _run(self):
         closed = False
@@ -208,7 +216,9 @@ class IdentifyService:
                     req.future.set_exception(e)
 
     def _dispatch(self, batch: List[_Request]) -> dict:
-        """Host letterbox + device program launch, with no host sync."""
+        """Host letterbox + device program launch. The NMS inside waits
+        for the host once per batch of fixpoint iterations
+        (`ops/nms.py`); nothing else does."""
         frames, scales = [], []
         for req in batch:
             padded, scale = self._letterbox(req.image)
@@ -224,10 +234,17 @@ class IdentifyService:
                 # an empty bank still runs the fused program: n_rows=0
                 # masks every sim and the names stay empty
                 bank_dev, n_rows, _ = self.bank.device_bank_padded(store=store)
-                ctx["out"] = frames_to_matches(
-                    self.det, self.arc, x, bank_dev, n_rows, self.cfg,
-                    self.max_faces, self.search_top_k, valid_cap=self.valid_cap,
-                )
+                if self.adaptive:
+                    ctx["handle"] = self._bucketed.start(
+                        x, n_frames=len(batch), bank_padded=bank_dev, n_rows=n_rows
+                    )
+                else:
+                    ctx["out"] = frames_to_matches(
+                        self.det, self.arc, x, bank_dev, n_rows, self.cfg,
+                        self.max_faces, self.search_top_k, valid_cap=self.valid_cap,
+                    )
+            elif self.adaptive:
+                ctx["handle"] = self._bucketed.start(x, n_frames=len(batch))
             else:
                 ctx["out"] = frames_to_features(
                     self.det, self.arc, x, self.cfg, self.max_faces,
@@ -240,11 +257,14 @@ class IdentifyService:
         batch, scales, store = ctx["batch"], ctx["scales"], ctx["store"]
         n_rows = len(store.names)
         wide = any(r.top_k > self.search_top_k for r in batch)
+        # the bucketed pipeline's results, less its n_valid, have the dense
+        # programs' layout
+        out = self._bucketed.finish(ctx["handle"])[:-1] if self.adaptive else ctx["out"]
         if self.fuse_search:
-            dets, feats, f_sims, f_idx = ctx["out"]
+            dets, feats, f_sims, f_idx = out
             f_sims, f_idx = f_sims.cpu().numpy(), f_idx.cpu().numpy()
         else:
-            dets, feats = ctx["out"]
+            dets, feats = out
         # the fused path needs the features on the host only for a
         # request wider than its baked top-k
         if not self.fuse_search or (n_rows and wide):

@@ -206,3 +206,46 @@ def test_similarity_matches_jax():
         np.asarray(j_sim.compare_faces(jnp.asarray(q), jnp.asarray(q[::-1]))),
         atol=1e-6,
     )
+
+
+def test_nms_chain_longer_than_one_check(monkeypatch):
+    """A suppression chain of 3·ITERS_PER_CHECK boxes, each overlapping
+    only the next: the fixpoint takes about one iteration per box, so
+    several batches of iterations. Keep masks equal JAX's; the host is
+    read once per batch of ITERS_PER_CHECK iterations, and the call is
+    counted under the iterations the reference's loop runs."""
+    n = 3 * nms.ITERS_PER_CHECK
+    x1 = np.arange(n, dtype=np.float32) * 7.0  # neighbours' IoU 3/17, others 0
+    chain = np.stack([x1, np.zeros(n), x1 + 10.0, np.full(n, 10.0)], -1).astype(np.float32)
+    rng = np.random.default_rng(4)
+    boxes = np.stack([chain, _clustered_boxes(rng, 1, n)[0]])
+    scores = np.stack([np.linspace(1.0, 0.5, n), rng.uniform(0, 1, n)]).astype(np.float32)
+
+    # the reference's loop: iterate until nothing changes
+    iou = np.asarray(j_nms.iou_matrix(jnp.asarray(chain), jnp.asarray(chain)))
+    sup = np.triu(iou > 0.1, 1)
+    keep, iterations = np.ones(n, bool), 0
+    while True:
+        iterations += 1
+        new = ~(sup & keep[:, None]).any(0)
+        if (new == keep).all():
+            break
+        keep = new
+    assert iterations > 2 * nms.ITERS_PER_CHECK
+
+    reads = []
+    for name in ("__int__", "__bool__"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda t, real=real: reads.append(1) or real(t))
+    before = nms.nms_fixed.iterations[iterations]
+    got = nms.nms_fixed(_t(boxes), _t(scores), 0.1, None, False, True)
+    monkeypatch.undo()
+    assert len(reads) == -(-iterations // nms.ITERS_PER_CHECK)
+    assert nms.nms_fixed.iterations[iterations] >= before + 1
+    for b in range(2):
+        want = j_nms.nms_fixed(jnp.asarray(boxes[b]), jnp.asarray(scores[b]), 0.1,
+                               None, False, True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+    assert got[2][0].numpy().tolist() == [i % 2 == 0 for i in range(n)]

@@ -18,6 +18,11 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.ops.warp_cuda",
     "facerecognizeonnx_tpu_torch.ops._nvcc",
     "facerecognizeonnx_tpu_torch.ops.gallery_cuda",
+    "facerecognizeonnx_tpu_torch.ops.warp_banded",
+    "facerecognizeonnx_tpu_torch.runtime",
+    "facerecognizeonnx_tpu_torch.runtime.native",
+    "facerecognizeonnx_tpu_torch.io",
+    "facerecognizeonnx_tpu_torch.io.imageio",
     "facerecognizeonnx_tpu_torch.models",
     "facerecognizeonnx_tpu_torch.models.layers",
     "facerecognizeonnx_tpu_torch.models.scrfd",
@@ -30,22 +35,27 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.match.gallery",
     "facerecognizeonnx_tpu_torch.utils",
     "facerecognizeonnx_tpu_torch.utils.checkpoint",
+    "facerecognizeonnx_tpu_torch.utils.observability",
     "facerecognizeonnx_tpu_torch.pipeline.fused",
     "facerecognizeonnx_tpu_torch.pipeline.api",
     "facerecognizeonnx_tpu_torch.pipeline.enroll",
     "facerecognizeonnx_tpu_torch.pipeline.service",
+    "facerecognizeonnx_tpu_torch.pipeline.bucketed",
+    "facerecognizeonnx_tpu_torch.pipeline.video",
 ]
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def test_port_imports_no_jax():
+    """Nor cv2 or PIL, which `io.imageio` imports only when a call needs
+    them: the GPU host has neither."""
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k.split('.')[0] == 'facerecognizeonnx_tpu')\n"
+        " or k.split('.')[0] in ('facerecognizeonnx_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

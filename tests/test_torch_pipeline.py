@@ -88,6 +88,7 @@ def test_frames_to_matches_matches_jax(setup, valid_cap):
             K, TOP_K, valid_cap=valid_cap,
         )
     assert warp_cuda.warp_affine_xm.launches == 0  # CPU: the plain version ran
+    assert idx.dtype == torch.int32 and w_idx.dtype == np.int32  # as lax.top_k gives them
 
     # detections: identical masks, boxes/kps within 1e-3
     np.testing.assert_array_equal(dets.valid.numpy(), w_dets.valid)

@@ -5,10 +5,10 @@ Weights: one `.npz` pair written by the JAX package (seeded init, BN
 calibrated, the detections recipe of chip_smoke.detection_bias), loaded
 by both packages' FaceDetector / FaceRecognizer. float32 at 128² input;
 the port runs on the CPU (its CUDA warp as the plain version), the JAX
-side with its Pallas warp in interpret mode. The service images are
-128×128, so the letterbox is the identity on both sides (the JAX service
-letterboxes with its native C++ runtime, which rounds where the
-on-device letterbox truncates).
+side with its Pallas warp in interpret mode. Most service images are
+128×128, where the letterbox is the identity; the camera-size test sends
+720×1280 and 1280×720 frames, which both services letterbox with their
+native C++ runtimes (uint8, rounding).
 """
 
 import dataclasses
@@ -30,6 +30,7 @@ from facerecognizeonnx_tpu_torch.pipeline.enroll import detect_align_crops, enro
 from facerecognizeonnx_tpu_torch.pipeline.service import IdentifyService
 from tests.test_torch_api import CFG, JCFG
 from tests.test_torch_models import _np_tree, iresnet_calibrated, scrfd_calibrated
+from tests.test_torch_native_runtime import jax_native_built
 
 MAX_FACES, TOP_K = 4, 3
 
@@ -44,6 +45,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    jax_native_built()  # the JAX service letterboxes with it
     rng = np.random.default_rng(31)
     frames = rng.integers(0, 256, (3, 128, 128, 3), dtype=np.uint8)
     det_tree = detection_bias(_np_tree(scrfd_calibrated(size=128)), torch.from_numpy(frames))
@@ -95,11 +97,11 @@ def _banks(enrolled):
     return pb, jb
 
 
-def _same_result(got, want, sims_atol=1e-4):
+def _same_result(got, want, sims_atol=1e-4, boxes_atol=1e-4):
     np.testing.assert_array_equal(got.valid, want.valid)
     assert got.names == want.names
     np.testing.assert_allclose(got.sims, want.sims, atol=sims_atol)
-    np.testing.assert_allclose(got.boxes, want.boxes, atol=1e-4)
+    np.testing.assert_allclose(got.boxes, want.boxes, atol=boxes_atol)
     np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
 
 
@@ -194,8 +196,62 @@ def test_bank_growth_between_dispatch_and_resolve(world, enrolled, fuse):
 def test_service_rejects_unported_options(world, enrolled):
     (det, rec), _, _, _ = world
     pb, _ = _banks(enrolled)
-    for kw in (dict(sharded=True), dict(mesh=2), dict(aot="bundle.frtz"),
-               dict(adaptive_embed=True)):
+    for kw in (dict(sharded=True), dict(mesh=2), dict(aot="bundle.frtz")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             IdentifyService(det.params, rec.params, pb, dataclasses.replace(CFG), device="cpu",
                             **kw)
+
+
+def _camera_frames():
+    """Two 720×1280 frames and a portrait 1280×720 one: their letterbox
+    to the detector's 128² is not the identity."""
+    rng = np.random.default_rng(13)
+    return [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+            for hw in ((720, 1280), (720, 1280), (1280, 720))]
+
+
+def test_service_letterbox_matches_jax_at_camera_sizes(world, enrolled):
+    """The port's service letterboxes with its native runtime, as the JAX
+    service does: names, masks and boxes equal JAX's on frames whose
+    letterbox rounds (the torch host letterbox truncates)."""
+    (det, rec), (jdet, jrec), _, _ = world
+    pb, jb = _banks(enrolled)
+    kw = dict(max_batch=2, batch_window_ms=20, max_faces=MAX_FACES, search_top_k=TOP_K)
+    svc = IdentifyService(det.params, rec.params, pb, CFG, device="cpu", **kw)
+    jsvc = JaxService(jdet.params, jrec.params, jb, JCFG, **kw)
+    try:
+        images = _camera_frames()
+        got = [f.result(600) for f in [svc.identify_async(im, TOP_K) for im in images]]
+        want = [f.result(600) for f in [jsvc.identify_async(im, TOP_K) for im in images]]
+    finally:
+        svc.close()
+        jsvc.close()
+    assert all(w.valid.any() for w in want)
+    for g, w in zip(got, want):
+        # boxes: the 1e-4 bar at the detector's scale, times 1 / scale = 10
+        _same_result(g, w, 2.3e-3, boxes_atol=1e-3)
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["two_dispatch", "fuse_search"])
+def test_adaptive_service_matches_dense(world, enrolled, fuse):
+    """IdentifyService(adaptive_embed=True) through the bucketed pipeline
+    gives the dense service's names, masks and boxes (features within
+    1e-5, sims likewise), on a partial last batch too."""
+    (det, rec), _, frames, _ = world
+    pb, _ = _banks(enrolled)
+    kw = dict(max_batch=2, batch_window_ms=20, max_faces=MAX_FACES, fuse_search=fuse,
+              search_top_k=TOP_K, device="cpu")
+    images = list(frames) + _camera_frames()[:2]
+    results = {}
+    for adaptive in (False, True):
+        svc = IdentifyService(det.params, rec.params, pb, CFG, adaptive_embed=adaptive, **kw)
+        try:
+            results[adaptive] = [f.result(600) for f in
+                                 [svc.identify_async(im, TOP_K) for im in images]]
+        finally:
+            svc.close()
+        if adaptive:
+            assert svc._bucketed.steps == svc.stats()["batches"] >= 3
+    assert sum(int(r.valid.sum()) for r in results[False]) > 0
+    for g, w in zip(results[True], results[False]):
+        _same_result(g, w, 1e-5)
