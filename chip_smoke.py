@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. environment: torch / CUDA versions, the card's name and power limit;
-     TF32 off for the float32 checks
+     TF32 off for matmuls, and for convolutions inside the float32 checks
+     (`tf32_off`; the bf16 path's convolutions run in float32 on bf16
+     operands, which TF32 holds exactly)
   2. build every csrc/*.cu with nvcc for sm_90a, one nvcc per source, and
      the native host runtime with g++, all started together
   3. the x-major warp (csrc/warp_xm.cu: pyramid launch, resample launch
@@ -45,8 +47,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      padding never wins; self-queries; at Q=128, G=100,000: kernel, plain
      and library composite times, median of 20 in turns, beside the
      3xTF32 bound
-  8. `GalleryBank.search(method="auto")` on a 1,000,000 x 512 bank with
-     2,048 queries (Q·G > 2·10^9): it must launch the gallery kernel once;
+  8. `GalleryBank.search(method="auto")` on a 500,000 x 512 bank with
+     4,096 queries (Q·G > 2·10^9): it must launch the gallery kernel once;
      64 of its rows held against the plain version
   9. the identify path at full width: FaceDetector (SCRFD-500m, 640) and
      FaceRecognizer (IResNet-50, bf16) on the card, enroll_batch of 64
@@ -70,7 +72,32 @@ Phases (any failure exits non-zero; there is no CPU path):
      `VideoPipeline` over 16 of those frames, dense and adaptive, with
      equal labels; and the histogram of NMS fixpoint iterations over the
      whole drive (`ops/nms.py` checks the host once per ITERS_PER_CHECK)
- 11. one JSON line of the kernels, the nvidia-smi line, and last
+ 11. the model families at full width, each through frames_to_matches on
+     phase 5's frames (B=8, 640x640, K=8) and gallery, bf16, seeded
+     weights, the detections recipe (`bias_detector`): the buffalo_sc
+     (phase 5's SCRFD-500m + IResNet-50, the phase's baseline), buffalo_l
+     (SCRFD-10g + IResNet-50), buffalo_m (2.5g + r50) and buffalo_s (500m
+     + MobileFaceNet) packs through `load_pack`, buffalo_sc with
+     quant="w8a8" and buffalo_s with quant="w8a8-fast", then SCRFD tpu and
+     500m_s2d with r50, mbf_large and vit_t (with 500m) through
+     load_model; per configuration 1 warp_xm_pyramid + 1 warp_xm launch
+     per step (and _int_mm launches only where quantized); unquantized:
+     the same models in float32 (TF32 off): at least 3/4 of the bf16
+     step's valid slots have a float32 detection whose box coordinates lie
+     within 4 px (bf16 and float32 detections are not equal on these
+     frames: scores near 0.5, IoUs near the NMS threshold and boxes by a
+     pixel or two move), and the recognizer's features on the step's
+     crops against the step's bf16 features, cosine >= 0.999; quantized:
+     detections equal to the unquantized pack's bf16 step, for one batch
+     of 2 crops every quantized op's int32 accumulator from torch._int_mm
+     equal to the int64 plain version (on the host), features at cosine
+     >= 0.97 to the unquantized ones on 64 noise crops (the calibration's
+     kind of input, as tests/test_quant.py) and recorded on the step's
+     crops (the default noise calibration fits warped crops less: the JAX
+     package's own w8a8 of the same seeded IResNet-50 reads 0.843 there
+     on the CPU); step ms and faces/s (median of 10) and the device
+     operations of a step
+ 12. one JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
@@ -94,6 +121,7 @@ frame clear 0.5.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -116,7 +144,7 @@ from facerecognizeonnx_tpu_torch.embed.pipeline import (
 )
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
-from facerecognizeonnx_tpu_torch.models import arcface, scrfd
+from facerecognizeonnx_tpu_torch.models import arcface, packs, quant, scrfd
 from facerecognizeonnx_tpu_torch.ops import gallery_cuda, nms, warp_cuda
 from facerecognizeonnx_tpu_torch.ops.image import letterbox
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
@@ -376,6 +404,29 @@ def detection_bias(det_tree, frames_u8: torch.Tensor, per_frame=32):
     nth = (ranked[:, per_frame - 1] + ranked[:, per_frame]) / 2  # between two anchors
     tree["head"]["cls"]["b"] = np.full_like(tree["head"]["cls"]["b"], -float(nth.median()))
     return tree
+
+
+def bias_detector(det: FaceDetector, frames_u8: torch.Tensor, per_frame=32) -> None:
+    """`detection_bias` on a FaceDetector loaded from its seed: the tree
+    load_model(None) built, biased, and its cls bias set in place (the cls
+    conv has no BN, so the fold left it as it is)."""
+    tree = detection_bias(bridge.init_params_numpy(det.cfg.scrfd_variant, seed=det.cfg.seed),
+                          frames_u8, per_frame)
+    bias = det.params.cls.bias
+    bias.data.copy_(torch.from_numpy(tree["head"]["cls"]["b"]).to(bias.device))
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """float32 convolutions in full float32. cuDNN takes TF32 by default,
+    which the bf16 path keeps: its convolutions run in float32 on bf16
+    operands, which TF32 holds exactly."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def letterbox_numpy(img: np.ndarray, dsize: int):
@@ -658,8 +709,16 @@ def phase_ymajor(frames, Ms, odd, odd_Ms, K) -> dict:
         f"warp_affine(layout='ymajor') launches {counts}, want 1 pyramid + 1 warp_ym"
     assert counts["warp_xm"] == 0 and counts["gallery_topk"] == 0, counts
     assert torch.equal(out, warp_cuda.resample_ym(frames, pyr, Ms)[0])
-    traced, called = device_ops(lambda: warp_cuda.warp_affine(frames, Ms))
-    assert traced in (0, 2), f"warp_affine(layout='ymajor') ran {traced} device operations"
+    # a trace can come back short of an event (a run on an H100 traced 1 of
+    # the 2 launches the counters had counted): take up to 3 traces; none
+    # may show more than 2 operations, and one must show 2 (or the
+    # profiler sees nothing at all)
+    traces = []
+    while len(traces) < 3 and all(t != 2 for t, _ in traces):
+        traces.append(device_ops(lambda: warp_cuda.warp_affine(frames, Ms)))
+    traced, called = max(traces)
+    assert max(t for t, _ in traces) <= 2 and (traced == 2 or not any(t for t, _ in traces)), \
+        f"warp_affine(layout='ymajor') traces {traces}"
 
     t_res, t_bf16, t_res_plain, t_bf16_plain, t_all, t_all_plain, t_all_eager, t_res_eager = \
         in_turns(
@@ -768,7 +827,7 @@ def phase_gallery(dev) -> dict:
                 library_ms=library_ms)
 
 
-def phase_auto(dev, G=1_000_000, Q=2_048) -> int:
+def phase_auto(dev, G=500_000, Q=4_096) -> int:
     """GalleryBank.search(method="auto") past the 2·10^9 boundary on a
     CUDA bank must stream through the kernel; returns its launches."""
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -998,10 +1057,11 @@ def phase_native_bucketed(dev, rng, det, rec, frames, api, cfg=None, camera_hw=(
     # main path holds bf16 features to (phase 5)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     pipe32 = bucketed.BucketedEmbedPipeline(det, rec, f32, K, valid_cap=CAP, device=dev)
-    pipe32(frames)
-    _, feats32, _ = pipe32(frames)
-    with torch.no_grad():
-        dense32 = frames_to_features(det, rec, frames, f32, K, valid_cap=CAP)[1]
+    with tf32_off():
+        pipe32(frames)
+        _, feats32, _ = pipe32(frames)
+        with torch.no_grad():
+            dense32 = frames_to_features(det, rec, frames, f32, K, valid_cap=CAP)[1]
     err32 = float((feats32 - dense32).abs().max())
     assert pipe32.last_bucket == 32 and err32 <= 1e-5, (pipe32.last_bucket, err32)
     assert cos >= 0.999, f"bucketed vs dense bf16 features: cosine {cos}"
@@ -1113,7 +1173,199 @@ def phase_native_bucketed(dev, rng, det, rec, frames, api, cfg=None, camera_hw=(
     return out
 
 
+# crops of the batch whose int32 accumulators are held against the int64
+# plain version, which runs on the host (IResNet-50: ~3 GMAC a crop)
+N_ACC_CROPS = 2
+FAMILIES = [
+    # (label, pack, quant, scrfd_variant, rec_arch): a pack through
+    # load_pack, or the detector and recognizer through their load_model;
+    # buffalo_sc (phase 5's models) first: the phase's own baseline
+    ("buffalo_sc", "buffalo_sc", None, None, None),
+    ("buffalo_l", "buffalo_l", None, None, None),
+    ("buffalo_m", "buffalo_m", None, None, None),
+    ("buffalo_s", "buffalo_s", None, None, None),
+    ("buffalo_sc w8a8", "buffalo_sc", "w8a8", None, None),
+    ("buffalo_s w8a8-fast", "buffalo_s", "w8a8-fast", None, None),
+    ("tpu + iresnet50", None, None, "tpu", "iresnet50"),
+    ("500m_s2d + iresnet50", None, None, "500m_s2d", "iresnet50"),
+    ("500m + mbf_large", None, None, "500m", "mbf_large"),
+    ("500m + vit_t", None, None, "500m", "vit_t"),
+]
+
+
+def load_family(dev, pack, quant_opt, variant, arch):
+    """(FaceDetector, FaceRecognizer) of one configuration, seeded weights."""
+    if pack:
+        return packs.load_pack(pack, quant=quant_opt, device=dev)
+    cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda",
+                         scrfd_variant=variant, rec_arch=arch)
+    det, rec = FaceDetector(cfg, device=dev), FaceRecognizer(cfg, device=dev)
+    assert det.load_model() and rec.load_model(), "load_model failed"
+    return det, rec
+
+
+def paired_slots(d_a, d_b, K, tol=4.0):
+    """(How many valid top-K slots of `d_a` have a detection of `d_b` in
+    the same frame, any of its valid rows, with every box coordinate
+    within `tol` pixels; the largest such distance among them). Boxes by
+    coordinates, not IoU: random-weight regressions give inverted boxes."""
+    n, worst = 0, 0.0
+    for f in range(d_a.valid.shape[0]):
+        a = d_a.boxes[f, :K][d_a.valid[f, :K]].float()
+        b = d_b.boxes[f][d_b.valid[f]].float()
+        if len(a) == 0 or len(b) == 0:
+            continue
+        dist = (a[:, None] - b[None]).abs().amax(-1).amin(-1)
+        near = dist <= tol
+        n += int(near.sum())
+        if near.any():
+            worst = max(worst, float(dist[near].max()))
+    return n, worst
+
+
+def int_mm_reference_threads(a, w, n=8):
+    """`quant.int_mm_reference` over n row blocks on n host threads (the
+    int64 matmul runs on one core and lets go of the GIL)."""
+    with ThreadPoolExecutor(n) as pool:
+        return torch.cat(list(pool.map(lambda blk: quant.int_mm_reference(blk, w), a.chunk(n))))
+
+
+def check_int8_accumulators(rec_model, crops):
+    """One forward of the quantized recognizer over `crops`: every QConv's
+    and QLinear's int32 accumulator from torch._int_mm on the card equal,
+    bit for bit, to the int64 plain version on the host. Returns the
+    number of ops checked."""
+    checked = []
+
+    def hook(mod, args):
+        xq = quant.quantize_act(args[0], mod.in_scale)
+        w_host = mod.w_q.cpu()
+        before = quant.int_mm.launches
+        if isinstance(mod, quant.QConv):
+            acc = mod.accumulate(xq)
+            ref = quant.conv_int32(xq.cpu(), w_host, mod.kh, mod.kw, mod.stride, mod.padding,
+                                   int_mm_reference_threads)
+        else:
+            acc = quant.int_mm(xq, mod.w_q)
+            ref = int_mm_reference_threads(xq.cpu(), w_host)
+        assert quant.int_mm.launches == before + 1, "the accumulator did not come from _int_mm"
+        assert torch.equal(acc.cpu(), ref), \
+            f"_int_mm accumulator differs from the plain version in {type(mod).__name__}"
+        checked.append(mod)
+
+    ops = [m for m in rec_model.modules() if isinstance(m, (quant.QConv, quant.QLinear))]
+    hooks = [m.register_forward_pre_hook(hook) for m in ops]
+    try:
+        with torch.no_grad():
+            embed_crops(rec_model, crops, PipelineConfig(), normalized=True)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(checked) == len(ops), (len(checked), len(ops))
+    return len(checked)
+
+
+def phase_families(dev, frames, bank, n_rows, K, top_k, smi):
+    """The model families at full width through frames_to_matches (phase
+    11 of the module docstring)."""
+    B = frames.shape[0]
+    rows = []
+    for label, pack, quant_opt, variant, arch in FAMILIES:
+        t_cfg = time.perf_counter()
+        det, rec = load_family(dev, pack, quant_opt, variant, arch)
+        bias_detector(det, frames)
+        cfg = dataclasses.replace(det.cfg, compute_dtype="bfloat16", warp_impl="cuda")
+
+        def run(c, rec_model=rec.params):
+            return frames_to_matches(det.params, rec_model, frames, bank, n_rows, c, K, top_k)
+
+        with torch.no_grad():
+            reset_counts()
+            quant.int_mm.launches = 0
+            dets, feats, sims, idx = run(cfg)
+            torch.cuda.synchronize()
+            counts, mm = read_counts(), quant.int_mm.launches
+            assert counts == {"warp_xm": 1, "warp_xm_pyramid": 1, "warp_ym": 0,
+                              "gallery_topk": 0}, (label, counts)
+            assert (mm > 0) == bool(quant_opt), (label, mm)
+            slot_valid = dets.valid[:, :K]
+            assert slot_valid.any(dim=-1).all(), f"{label}: a frame found no faces"
+            check_features(feats, slot_valid, n_rows, idx)
+            assert feats.shape == (B, K, 512) and sims.shape == idx.shape == (B, K, top_k)
+            # the step's crops (its detections, the kernel's warp)
+            _, top = detect_topk(det.params, frames, cfg, K)
+            assert torch.equal(top.boxes, dets.boxes[:, :K]), f"{label}: detections moved"
+            crops = align_faces_batch(frames, top.kps, top.boxes, cfg, top.valid, True)
+            crops = crops.reshape(B * K, 112, 112, 3)
+            if quant_opt:
+                # the same pack unquantized, bf16: the same detections; every
+                # int32 accumulator of one batch against the plain version;
+                # the quantized features against its bf16 ones on the step's
+                # crops (recorded) and on crops of the calibration's kind,
+                # uniform noise as tests/test_quant.py (bar 0.97)
+                ref = FaceRecognizer(dataclasses.replace(rec.cfg, recognizer_quant="none"),
+                                     device=dev)
+                assert ref.load_model()
+                rdets, rfeats, _, _ = run(cfg, ref.params)
+                assert torch.equal(rdets.valid, dets.valid), f"{label}: detections differ"
+                assert torch.equal(rdets.boxes, dets.boxes), f"{label}: detections differ"
+                n_ops = check_int8_accumulators(rec.params, crops[:N_ACC_CROPS])
+                step_cos = (feats * rfeats).sum(-1)[slot_valid]
+                noise = torch.from_numpy(np.random.default_rng(1).integers(
+                    0, 256, (B * K, 112, 112, 3), dtype=np.uint8)).to(dev)
+                noise_cos = float((embed_crops(rec.params, noise, cfg)
+                                   * embed_crops(ref.params, noise, cfg)).sum(-1).min())
+                assert noise_cos >= 0.97, f"{label}: quantized vs bf16 cosine {noise_cos}"
+                detail = (f"detections equal the unquantized pack's; {n_ops} int32 "
+                          f"accumulators of one batch of {N_ACC_CROPS} crops bit-equal to the "
+                          f"int64 plain version; quantized vs bf16 features cosine min "
+                          f"{noise_cos:.5f} on {B * K} noise crops (bar 0.97), on the step's "
+                          f"crops min {float(step_cos.min()):.5f} median "
+                          f"{float(step_cos.median()):.5f} (recorded); {mm} _int_mm "
+                          f"launches per step")
+                del ref
+            else:
+                # the same models in float32 (TF32 off): the detector's
+                # detections against the bf16 step's by box; the recognizer
+                # on the step's crops against its bf16 features
+                with tf32_off():
+                    d32 = detect_topk(det.params, frames,
+                                      dataclasses.replace(cfg, compute_dtype="float32"), K)[0]
+                    f32 = embed_crops(rec.params, crops, cfg, torch.float32, normalized=True)
+                torch.cuda.synchronize()
+                paired, worst = paired_slots(dets, d32, K)
+                n_valid = int(slot_valid.sum())
+                same = sum(torch.equal(dets.valid[f], d32.valid[f]) for f in range(B))
+                assert paired >= 0.75 * n_valid, f"{label}: {paired}/{n_valid} paired"
+                cos = float((feats * f32.reshape(B, K, -1)).sum(-1)[slot_valid].min())
+                assert cos >= 0.999, f"{label}: bf16 vs float32 feature cosine {cos}"
+                detail = (f"float32 detector: {same}/{B} frames with equal masks, "
+                          f"{paired}/{n_valid} bf16 slots with a float32 detection within "
+                          f"4 px (farthest {worst:.2f} px); bf16 vs "
+                          f"float32 features on the step's crops cosine min {cos:.6f} "
+                          f"(bar 0.999)")
+            step_ms = wall_ms(lambda: run(cfg))
+            ops = device_ops(lambda: run(cfg))
+        rows.append(dict(config=label, step_ms=step_ms, faces_per_s=B * K / step_ms * 1e3,
+                         device_ops=ops[0], launches_called=ops[1]))
+        log(f"family {label} ({det.cfg.scrfd_variant} + {rec.cfg.rec_arch}, B={B}, K={K}, "
+            f"{frames.shape[1]}x{frames.shape[2]}, bf16): {int(slot_valid.sum())}/{B * K} slots, "
+            f"launches per step "
+            f"{counts}; {detail}; step (median of 10) {step_ms:.3f} ms = "
+            f"{B * K / step_ms * 1e3:.1f} faces/s; device operations {ops[0]} traced / "
+            f"{ops[1]} launched; {time.perf_counter() - t_cfg:.1f} s | card: {smi}")
+        del det, rec
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def phase(n):
+        log(f"-- phase {n} at {time.perf_counter() - t0:.1f} s")
+
     # ---- 1. environment
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU host only",
@@ -1124,19 +1376,22 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"device: {kind} x{torch.cuda.device_count()} | nvidia-smi: {smi}")
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log("TF32 off for cuDNN convolutions and matmuls (float32 checks run in full f32)")
+    log("TF32 off for matmuls; cuDNN convolutions take TF32 (exact on the bf16 path's "
+        "operands) except inside the float32 checks (tf32_off)")
 
     # ---- 2. build every kernel source
+    phase(2)
     build_all()
 
     # ---- 3. the x-major warp kernels vs their plain versions
+    phase(3)
     nms.nms_fixed.iterations.clear()  # phase 10 prints the drive's histogram
     rng = np.random.default_rng(0)
     xm, pyramid, warp_case = phase_warp_xm(dev, rng)
 
     # ---- 4. small input: the card's kernel path vs the port's CPU path (f32)
+    phase(4)
     small_cfg = PipelineConfig(det_input_size=128, compute_dtype="float32", warp_impl="cuda")
     small_frames = rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
     small_det_tree = detection_bias(
@@ -1147,7 +1402,7 @@ def main() -> int:
     small_bank = torch.nn.functional.normalize(
         torch.from_numpy(rng.normal(size=(48, 512)).astype(np.float32)), dim=-1
     )
-    with torch.no_grad():
+    with torch.no_grad(), tf32_off():
         cpu = frames_to_matches(small_det, small_rec, torch.from_numpy(small_frames),
                                 small_bank, 40, small_cfg, 4, 3)
         warp_cuda.warp_affine_xm.launches = 0
@@ -1169,6 +1424,7 @@ def main() -> int:
         f"{int(sv.sum())} faces, warp launches {small_launches}")
 
     # ---- 5. the main path at full width
+    phase(5)
     B, K, TOP_K, N_ROWS, G_PAD = 8, 8, 5, 10_000, 16_384
     cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
     frames = torch.from_numpy(
@@ -1259,21 +1515,31 @@ def main() -> int:
         f"{align_ops[0]} / {align_ops[1]}")
 
     # ---- 6. the y-major warp kernel, and its path
+    phase(6)
     ym = phase_ymajor(*warp_case)
 
     # ---- 7. the gallery top-k kernel vs its plain version
+    phase(7)
     gallery = phase_gallery(dev)
 
     # ---- 8. GalleryBank.search(method="auto") past the 2·10^9 boundary
+    phase(8)
     gallery["launches"] = phase_auto(dev)
 
     # ---- 9. the identify path at full width
+    phase(9)
     api = phase_identify(dev, rng)
 
     # ---- 10. the native runtime, the bucketed embed, adaptive serving, video
+    phase(10)
     phase_native_bucketed(dev, rng, det, rec, frames, api)
 
-    # ---- 11. result lines
+    # ---- 11. the model families at full width
+    phase(11)
+    phase_families(dev, frames, bank, N_ROWS, K, TOP_K, smi)
+
+    # ---- 12. result lines
+    phase(12)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",

@@ -8,6 +8,7 @@ match/, pipeline/) on torch tensors. Entry points:
   FaceDetector, FaceRecognizer (pipeline/api.py)           the components
   match.gallery.GalleryBank, pipeline.enroll.enroll_batch,
   pipeline.service.IdentifyService                         1:N identify
+  models.packs.load_pack                                   a buffalo pack
 
 Each runs on the card unless the caller passes device="cpu". The TPU
 kernels of the JAX package are hand-written CUDA kernels for Hopper

@@ -2,17 +2,20 @@
 
 `params_from_numpy(tree, device="cuda")` takes a param pytree of the JAX
 package — after `jax.device_get`, or any tree of array-likes — and
-returns the port's SCRFD or IResNet module on `device`. Both unfolded trees and
+returns the port's module on `device`: SCRFD (any variant, from
+`scrfd.infer_variant`), IResNet, MobileFaceNet (a tree with "body") or
+ViT (a tree with "pos_embed"). Both unfolded trees and
 `fold_inference_params` trees (post-conv BN keys absent, conv biases
 present) are accepted. Layout conversions:
 
   conv   HWIO → OIHW  (w.transpose(3, 2, 0, 1)); depthwise is HWIO, I=1
   FC     (din, dout) → (dout, din)
-  BN dicts and PReLU alphas are copied as they are.
+  BN dicts, LayerNorms and PReLU alphas are copied as they are.
 
 `init_params_numpy(arch, seed)` draws a tree of the same shapes as the
-JAX initializers (He-normal convs and FC, identity BN, PReLU 0.25, the
-SCRFD focal-style cls bias) with numpy, for hosts without JAX. Its
+JAX initializers (He-normal convs and FC, identity BN and LayerNorm,
+PReLU 0.25, the SCRFD focal-style cls bias, ViT positions N(0, 0.02²))
+with numpy, for hosts without JAX. Its
 values differ from `jax.random`'s.
 """
 
@@ -25,7 +28,6 @@ import torch
 
 from facerecognizeonnx_tpu_torch.config import resolve_device
 from facerecognizeonnx_tpu_torch.errors import ModelLoadError
-from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER
 from facerecognizeonnx_tpu_torch.models.arcface import (
     IRESNET_SPECS,
     IBasicBlock,
@@ -38,15 +40,29 @@ from facerecognizeonnx_tpu_torch.models.layers import (
     Linear,
     PReLU,
 )
+from facerecognizeonnx_tpu_torch.models.mobilefacenet import (
+    MBF_SPECS,
+    Bottleneck,
+    MobileFaceNet,
+    arch_of_depth,
+    body_plan,
+)
 from facerecognizeonnx_tpu_torch.models.scrfd import (
     NUM_ANCHORS,
     SCRFD,
     SCRFD_VARIANTS,
     STRIDES,
-    UNPORTED_VARIANT,
     DWSepBlock,
+    infer_variant,
 )
-
+from facerecognizeonnx_tpu_torch.models.vit import (
+    PATCH,
+    VIT_SPECS,
+    Block,
+    LayerNorm,
+    ViT,
+    arch_of_dim,
+)
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
@@ -76,46 +92,45 @@ def _linear(p) -> Linear:
     return Linear(_t(w), _t(p["b"]) if "b" in p else None)
 
 
-def _scrfd_from_tree(tree) -> SCRFD:
-    backbone = tree["backbone"]
-    plan = SCRFD_VARIANTS["500m"]["plan"]
-    if (
-        len(backbone) != len(plan) - 1
-        or any("pw" not in blk for blk in backbone)
-        or any(
-            np.shape(blk["pw"]["w"])[-1] != cout
-            for (cout, _), blk in zip(plan[1:], backbone)
-        )
-    ):
-        raise NotImplementedError(UNPORTED_VARIANT)
+def _cbp(p, stride=1, padding=0, groups=1) -> ConvUnit:
+    """{"conv", "bn"?, "prelu"?} → ConvUnit (a folded tree has no "bn")."""
+    act = _prelu(p["prelu"]) if "prelu" in p else None
+    return ConvUnit(_conv(p["conv"], stride, padding, groups), _bn(p.get("bn")), act)
 
-    st = tree["stem"]
-    stem = ConvUnit(_conv(st["conv"], 2, 1), _bn(st.get("bn")), _prelu(st["prelu"]))
+
+def _ln(p) -> LayerNorm:
+    return LayerNorm(_t(p["scale"]), _t(p["bias"]))
+
+
+def _scrfd_from_tree(tree) -> SCRFD:
+    variant = infer_variant(tree)
+    spec = SCRFD_VARIANTS[variant]
+    plan = spec["plan"]
+    stem = _cbp(tree["stem"], 1 if spec.get("s2d") else 2, 1)
     blocks = []
     cin = plan[0][0]
-    for (cout, stride), blk in zip(plan[1:], backbone):
-        dw = ConvUnit(
-            _conv(blk["dw"], stride, 1, groups=cin),
-            _bn(blk.get("dw_bn")),
-            _prelu(blk["dw_prelu"]),
-        )
-        pw = ConvUnit(_conv(blk["pw"]), _bn(blk.get("pw_bn")), _prelu(blk["pw_prelu"]))
-        blocks.append(DWSepBlock(dw, pw))
+    for (cout, stride), blk in zip(plan[1:], tree["backbone"]):
+        if spec.get("dense"):
+            blocks.append(_cbp(blk, stride, 1))
+        else:
+            dw = ConvUnit(
+                _conv(blk["dw"], stride, 1, groups=cin),
+                _bn(blk.get("dw_bn")),
+                _prelu(blk["dw_prelu"]),
+            )
+            pw = ConvUnit(_conv(blk["pw"]), _bn(blk.get("pw_bn")), _prelu(blk["pw_prelu"]))
+            blocks.append(DWSepBlock(dw, pw))
         cin = cout
     n = tree["neck"]
     neck = {k: _conv(n[k], 1, 1 if k.startswith("smooth") else 0) for k in n}
     h = tree["head"]
-    head_convs = [
-        ConvUnit(_conv(cp["conv"], 1, 1), _bn(cp.get("bn")), _prelu(cp["prelu"]))
-        for cp in h["convs"]
-    ]
+    head_convs = [_cbp(cp, 1, 1) for cp in h["convs"]]
     scales = {s: float(np.asarray(tree["scales"][f"s{s}"])) for s in STRIDES}
     return SCRFD(
         stem, blocks, neck, head_convs,
         _conv(h["cls"], 1, 1), _conv(h["bbox"], 1, 1), _conv(h["kps"], 1, 1),
-        scales,
+        scales, variant,
     )
-
 
 def _iresnet_from_tree(tree) -> IResNet:
     stem = ConvUnit(_conv(tree["conv1"], 1, 1), _bn(tree.get("bn1")),
@@ -142,20 +157,54 @@ def _iresnet_from_tree(tree) -> IResNet:
                    _bn(tree.get("features_bn")))
 
 
+def _mbf_from_tree(tree) -> MobileFaceNet:
+    plan = body_plan(*MBF_SPECS[arch_of_depth(len(tree["body"]))])
+    body = [
+        Bottleneck(
+            ConvUnit(_conv(p["pw1"]), _bn(p.get("pw1_bn")), _prelu(p["pw1_prelu"])),
+            ConvUnit(_conv(p["dw"], stride, 1, groups=g), _bn(p.get("dw_bn")),
+                     _prelu(p["dw_prelu"])),
+            ConvUnit(_conv(p["pw2"]), _bn(p.get("pw2_bn"))),
+            residual=stride == 1,
+        )
+        for (_, _, g, stride), p in zip(plan, tree["body"])
+    ]
+    return MobileFaceNet(
+        _cbp(tree["stem"], 2, 1), _cbp(tree["stem_dw"], 1, 1, groups=64), body,
+        _cbp(tree["conv_sep"]), _cbp(tree["gdc_dw"], groups=512),
+        _linear(tree["fc"]), _bn(tree.get("features_bn")),
+    )
+
+
+def _vit_from_tree(tree) -> ViT:
+    _, _, heads = VIT_SPECS[arch_of_dim(np.shape(tree["pos_embed"])[1])]
+    blocks = [
+        Block(_ln(p["ln1"]), _linear(p["qkv"]), _linear(p["proj"]), _ln(p["ln2"]),
+              _linear(p["mlp1"]), _linear(p["mlp2"]), heads)
+        for p in tree["blocks"]
+    ]
+    return ViT(_linear(tree["patch"]), _t(tree["pos_embed"]), blocks, _ln(tree["ln_f"]),
+               _linear(tree["fc"]), _bn(tree.get("features_bn")))
+
+
 def params_from_numpy(tree: Dict, device="cuda") -> torch.nn.Module:
-    """JAX SCRFD / IResNet param tree → the port's module, float32, on
-    `device` (the card unless the caller asks for the CPU)."""
+    """JAX SCRFD / IResNet / MobileFaceNet / ViT param tree → the port's
+    module, float32, on `device` (the card unless the caller asks for the
+    CPU)."""
     dev = resolve_device(device)
     if "stem" in tree and "backbone" in tree:
         model = _scrfd_from_tree(tree)
     elif "layer1" in tree:
         model = _iresnet_from_tree(tree)
-    elif "body" in tree or "pos_embed" in tree:
-        raise NotImplementedError(UNPORTED_RECOGNIZER)
+    elif "body" in tree:
+        model = _mbf_from_tree(tree)
+    elif "pos_embed" in tree:
+        model = _vit_from_tree(tree)
     else:
-        raise ModelLoadError("param tree matches no known model (SCRFD or IResNet)")
+        raise ModelLoadError(
+            "param tree matches no known model (SCRFD, IResNet, MobileFaceNet or ViT)"
+        )
     return model.to(dev)
-
 
 # ---------------------------------------------------------------- numpy init
 
@@ -190,29 +239,32 @@ class _Init:
         return {"alpha": np.full((c,), 0.25, np.float32)}
 
 
+def _cbp_tree(init: _Init, k, cin, cout, groups=1, prelu=True) -> Dict:
+    tree = {"conv": init.conv(k, k, cin, cout, groups), "bn": init.bn(cout)}
+    if prelu:
+        tree["prelu"] = init.prelu(cout)
+    return tree
+
+
 def _scrfd_tree(init: _Init, variant: str) -> Dict:
-    if variant not in SCRFD_VARIANTS:
-        raise NotImplementedError(UNPORTED_VARIANT)
     spec = SCRFD_VARIANTS[variant]
     plan, neck_ch, head_ch = spec["plan"], spec["neck"], spec["head"]
     stem_ch = plan[0][0]
-    tree: Dict = {
-        "stem": {
-            "conv": init.conv(3, 3, 3, stem_ch),
-            "bn": init.bn(stem_ch),
-            "prelu": init.prelu(stem_ch),
-        }
-    }
+    s2d = int(spec.get("s2d", 0))
+    tree: Dict = {"stem": _cbp_tree(init, 3, 3 * s2d * s2d if s2d else 3, stem_ch)}
     blocks, cin = [], stem_ch
     for cout, _ in plan[1:]:
-        blocks.append({
-            "dw": init.conv(3, 3, cin, cin, groups=cin),
-            "dw_bn": init.bn(cin),
-            "dw_prelu": init.prelu(cin),
-            "pw": init.conv(1, 1, cin, cout),
-            "pw_bn": init.bn(cout),
-            "pw_prelu": init.prelu(cout),
-        })
+        if spec.get("dense"):
+            blocks.append(_cbp_tree(init, 3, cin, cout))
+        else:
+            blocks.append({
+                "dw": init.conv(3, 3, cin, cin, groups=cin),
+                "dw_bn": init.bn(cin),
+                "dw_prelu": init.prelu(cin),
+                "pw": init.conv(1, 1, cin, cout),
+                "pw_bn": init.bn(cout),
+                "pw_prelu": init.prelu(cout),
+            })
         cin = cout
     tree["backbone"] = blocks
     c3, c4, c5 = sorted({c for c, _ in plan})[-3:]
@@ -226,11 +278,7 @@ def _scrfd_tree(init: _Init, variant: str) -> Dict:
     }
     convs, cin = [], neck_ch
     for _ in range(spec["stacked"]):
-        convs.append({
-            "conv": init.conv(3, 3, cin, head_ch),
-            "bn": init.bn(head_ch),
-            "prelu": init.prelu(head_ch),
-        })
+        convs.append(_cbp_tree(init, 3, cin, head_ch))
         cin = head_ch
     head = {"convs": convs}
     for name, k, bias in (("cls", 1, -4.59), ("bbox", 4, 0.0), ("kps", 10, 0.0)):
@@ -239,7 +287,6 @@ def _scrfd_tree(init: _Init, variant: str) -> Dict:
     tree["head"] = head
     tree["scales"] = {f"s{s}": np.ones((), np.float32) for s in STRIDES}
     return tree
-
 
 def _iresnet_tree(init: _Init, arch: str, input_size: int, feature_dim: int) -> Dict:
     blocks, widths = IRESNET_SPECS[arch]
@@ -273,12 +320,76 @@ def _iresnet_tree(init: _Init, arch: str, input_size: int, feature_dim: int) -> 
     return tree
 
 
+def _mbf_tree(init: _Init, arch: str, input_size: int, feature_dim: int) -> Dict:
+    blocks, scale = MBF_SPECS[arch]
+    c64, c128 = 64 * scale, 128 * scale
+    tree: Dict = {
+        "stem": _cbp_tree(init, 3, 3, c64),
+        "stem_dw": _cbp_tree(init, 3, c64, c64, groups=64),
+    }
+    body = []
+    for cin, cout, g, _ in body_plan(blocks, scale):
+        body.append({
+            "pw1": init.conv(1, 1, cin, g),
+            "pw1_bn": init.bn(g),
+            "pw1_prelu": init.prelu(g),
+            "dw": init.conv(3, 3, g, g, groups=g),
+            "dw_bn": init.bn(g),
+            "dw_prelu": init.prelu(g),
+            "pw2": init.conv(1, 1, g, cout),
+            "pw2_bn": init.bn(cout),
+        })
+    tree["body"] = body
+    tree["conv_sep"] = _cbp_tree(init, 1, c128, 512)
+    tree["gdc_dw"] = _cbp_tree(init, input_size // 16, 512, 512, groups=512, prelu=False)
+    tree["fc"] = {"w": init.linear(512, feature_dim)["w"]}  # no bias
+    tree["features_bn"] = init.bn(feature_dim)
+    return tree
+
+
+def _vit_tree(init: _Init, arch: str, input_size: int, feature_dim: int) -> Dict:
+    dim, depth, _ = VIT_SPECS[arch]
+    if input_size % PATCH:
+        raise ValueError(f"input_size {input_size} not divisible by {PATCH}")
+
+    def ln():
+        return {"scale": np.ones((dim,), np.float32), "bias": np.zeros((dim,), np.float32)}
+
+    n_tok = (input_size // PATCH) ** 2
+    tree: Dict = {
+        "patch": init.linear(PATCH * PATCH * 3, dim),
+        "pos_embed": init.rng.standard_normal((n_tok, dim), np.float32) * np.float32(0.02),
+    }
+    tree["blocks"] = [
+        {
+            "ln1": ln(),
+            "qkv": init.linear(dim, 3 * dim),
+            "proj": init.linear(dim, dim),
+            "ln2": ln(),
+            "mlp1": init.linear(dim, 4 * dim),
+            "mlp2": init.linear(4 * dim, dim),
+        }
+        for _ in range(depth)
+    ]
+    tree["ln_f"] = ln()
+    tree["fc"] = init.linear(dim, feature_dim)
+    tree["features_bn"] = init.bn(feature_dim)
+    return tree
+
+
 def init_params_numpy(
     arch: str, seed: int = 0, input_size: int = 112, feature_dim: int = 512
 ) -> Dict:
-    """Random param tree for an SCRFD variant ("500m") or an IResNet
-    ("iresnet18/34/50/100"), JAX layouts, drawn from `seed` with numpy."""
+    """Random param tree for an SCRFD variant ("500m", "2.5g", "10g",
+    "tpu", "500m_s2d") or a recognizer ("iresnet18/34/50/100", "mbf",
+    "mbf_large", "vit_t/s/b"), JAX layouts, drawn from `seed` with numpy."""
     init = _Init(seed)
+    if arch in SCRFD_VARIANTS:
+        return _scrfd_tree(init, arch)
     if arch in IRESNET_SPECS:
         return _iresnet_tree(init, arch, input_size, feature_dim)
-    return _scrfd_tree(init, arch)
+    if arch in MBF_SPECS:
+        return _mbf_tree(init, arch, input_size, feature_dim)
+    if arch in VIT_SPECS:
+        return _vit_tree(init, arch, input_size, feature_dim)
+    raise ValueError(f"unknown arch {arch!r}")

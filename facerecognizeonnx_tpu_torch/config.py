@@ -10,6 +10,11 @@ reference's names:
              window); a CPU tensor takes its plain-torch version
   "pallas" — the reference's name for its x-major TPU kernel: the same
              semantics, so it runs "cuda"
+
+`scrfd_variant` names a detector of `models/scrfd.py` ("500m", "2.5g",
+"10g", "tpu", "500m_s2d"), `rec_arch` a recognizer ("iresnet18/34/50/
+100", "mbf", "mbf_large", "vit_t/s/b"), `recognizer_quant` "none" or
+"w8a8" (quantize the recognizer at load).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 WARP_IMPLS = ("gather", "banded", "cuda", "pallas")
+RECOGNIZER_QUANTS = ("none", "w8a8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +74,17 @@ class PipelineConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.warp_impl not in WARP_IMPLS:
-            raise ValueError(
-                f"warp_impl must be one of {WARP_IMPLS}, got {self.warp_impl!r}"
-            )
+        from facerecognizeonnx_tpu_torch.models import recognizer_archs
+        from facerecognizeonnx_tpu_torch.models.scrfd import SCRFD_VARIANTS
+
+        for field, value, allowed in (
+            ("warp_impl", self.warp_impl, WARP_IMPLS),
+            ("scrfd_variant", self.scrfd_variant, tuple(SCRFD_VARIANTS)),
+            ("rec_arch", self.rec_arch, recognizer_archs()),
+            ("recognizer_quant", self.recognizer_quant, RECOGNIZER_QUANTS),
+        ):
+            if value not in allowed:
+                raise ValueError(f"{field} must be one of {allowed}, got {value!r}")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

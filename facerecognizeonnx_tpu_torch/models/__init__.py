@@ -1,22 +1,43 @@
 """PyTorch model definitions of the port (NHWC at the public boundary,
-NCHW inside): `scrfd` (det_500m) and `arcface` (IResNet 18/34/50/100).
+NCHW inside): `scrfd` (the det_500m / 2.5g / 10g / tpu / 500m_s2d
+family), and the recognizers `arcface` (IResNet 18/34/50/100),
+`mobilefacenet` (mbf, mbf_large) and `vit` (vit_t/s/b); `quant` (w8a8)
+and `packs` (the buffalo bundles).
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
-# MobileFaceNet (w600k_mbf) and ViT recognizers are not ported yet.
-UNPORTED_RECOGNIZER = (
-    "only IResNet recognizers are ported; MobileFaceNet and ViT are queued "
-    "in ROADMAP.md Queue A item 12"
+_FAMILIES = (
+    ("arcface", "IResNet", "IRESNET_SPECS"),
+    ("mobilefacenet", "MobileFaceNet", "MBF_SPECS"),
+    ("vit", "ViT", "VIT_SPECS"),
 )
 
 
-def recognizer_apply(model, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Dispatch a recognizer forward pass on the model's structure."""
-    from facerecognizeonnx_tpu_torch.models.arcface import IResNet
+def _family(name: str):
+    return importlib.import_module(f"facerecognizeonnx_tpu_torch.models.{name}")
 
-    if isinstance(model, IResNet):
-        return model(x, compute_dtype)
-    raise NotImplementedError(UNPORTED_RECOGNIZER)
+
+def recognizer_module_for(model: torch.nn.Module):
+    """The model module of a recognizer, from its type (a quantized copy
+    keeps its family's type)."""
+    for name, cls, _ in _FAMILIES:
+        mod = _family(name)
+        if isinstance(model, getattr(mod, cls)):
+            return mod
+    raise TypeError(f"not a recognizer of the port: {type(model).__name__}")
+
+
+def recognizer_apply(model, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A recognizer's forward pass: (B, S, S, 3) → (B, 512) float32."""
+    recognizer_module_for(model)
+    return model(x, compute_dtype)
+
+
+def recognizer_archs():
+    """Every recognizer arch name of the port."""
+    return tuple(a for name, _, specs in _FAMILIES for a in getattr(_family(name), specs))

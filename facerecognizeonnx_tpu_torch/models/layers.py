@@ -1,13 +1,14 @@
 """NN layers of the port: functional ops plus the small modules the
-SCRFD and IResNet networks are built from.
+SCRFD, IResNet and MobileFaceNet networks are built from (ViT adds its
+LayerNorm in models/vit.py).
 
 Port of `facerecognizeonnx_tpu/models/layers.py`. Activations inside a
 network are NCHW (PyTorch's conv layout); the models convert from and
 to the NHWC public layout themselves. The rounding points of the JAX
 layers are kept:
 
-  - conv: inputs cast to the compute dtype, f32 accumulation, output in
-    the compute dtype (the bias is added in f32 before that cast);
+  - conv: inputs rounded to the compute dtype, f32 products and sums,
+    the bias added in f32, one rounding to the compute dtype;
   - batch_norm: f32 math, result cast back to the input dtype;
   - prelu: in the input (compute) dtype;
   - linear: compute-dtype operands, f32 products and sums, f32 output.
@@ -36,12 +37,19 @@ def conv2d(
     groups: int = 1,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """NCHW x OIHW conv, symmetric padding; output in compute_dtype."""
-    y = F.conv2d(
-        x.to(compute_dtype), w.to(compute_dtype), None, stride, padding, 1, groups
-    )
+    """NCHW x OIHW conv, symmetric padding; output in compute_dtype.
+
+    The operands are rounded to compute_dtype, the conv runs in float32
+    on them (products of bf16 values are exact in f32; on the card cuDNN
+    may take TF32, which holds bf16 values exactly), the bias is added in
+    float32, and the result is rounded once, as XLA's conv with
+    preferred_element_type=f32 followed by the bias add. A bf16 conv
+    would round its output before the bias: a second rounding."""
+    xc = x.to(compute_dtype).to(torch.float32)
+    wc = w.to(compute_dtype).to(torch.float32)
+    y = F.conv2d(xc, wc, None, stride, padding, 1, groups)
     if b is not None:
-        y = y.to(torch.float32) + b.to(torch.float32)[:, None, None]
+        y = y + b.to(torch.float32)[:, None, None]
     return y.to(compute_dtype)
 
 

@@ -1,10 +1,11 @@
-"""SCRFD anchor-free face detector (det_500m class) as an nn.Module.
+"""SCRFD anchor-free face detector (the det_500m / 2.5g / 10g family) as
+an nn.Module.
 
-Port of `facerecognizeonnx_tpu/models/scrfd.py`, variant "500m" only:
-a depthwise-separable backbone (widths 16/16/40/72/152/288), an FPN
-neck and an FCOS-style head shared across strides with per-stride
-output scales. Weights come from a JAX param tree through
-`bridge.params_from_numpy`.
+Port of `facerecognizeonnx_tpu/models/scrfd.py`: a backbone of
+depthwise-separable blocks (dense 3x3 blocks for the "tpu" variant; a
+stride-4 space-to-depth stem for "500m_s2d"), an FPN neck and an
+FCOS-style head shared across strides with per-stride output scales.
+Weights come from a JAX param tree through `bridge.params_from_numpy`.
 
   input  (B, S, S, 3) normalized RGB, NHWC
   output {stride: (scores (B, H*W*2, 1), bbox (B, H*W*2, 4),
@@ -18,8 +19,9 @@ permuted to NHWC before its reshape.
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,8 +30,10 @@ from facerecognizeonnx_tpu_torch.models.layers import Conv, ConvUnit
 STRIDES = (8, 16, 32)
 NUM_ANCHORS = 2
 
-# Only the det_500m class is ported; the 2.5g / 10g / tpu / 500m_s2d
-# variants of the JAX package wait in ROADMAP.md Queue A item 3.
+# Each entry: backbone plan of (out_ch, stride) blocks (the first is the
+# stem), neck and head widths, stacked head convs; "dense" marks 3x3
+# dense blocks, "s2d" a space-to-depth stem of that factor. A copy of the
+# JAX package's table.
 SCRFD_VARIANTS = {
     "500m": {
         "plan": (
@@ -40,17 +44,75 @@ SCRFD_VARIANTS = {
         "head": 64,
         "stacked": 2,
     },
+    "2.5g": {
+        "plan": (
+            (28, 2), (28, 1), (56, 2), (56, 1), (112, 2), (112, 1), (112, 1),
+            (224, 2), (224, 1), (224, 1), (448, 2), (448, 1),
+        ),
+        "neck": 96,
+        "head": 96,
+        "stacked": 3,
+    },
+    "10g": {
+        "plan": (
+            (56, 2), (56, 1), (88, 2), (88, 1), (176, 2), (176, 1), (176, 1),
+            (352, 2), (352, 1), (352, 1), (704, 2), (704, 1),
+        ),
+        "neck": 128,
+        "head": 128,
+        "stacked": 4,
+    },
+    "tpu": {
+        "plan": (
+            (32, 2), (32, 1), (64, 2), (64, 1), (96, 2), (96, 1),
+            (128, 2), (128, 1), (160, 2), (160, 1),
+        ),
+        "neck": 64,
+        "head": 64,
+        "stacked": 2,
+        "dense": True,
+    },
+    "500m_s2d": {
+        "plan": (
+            (40, 4), (40, 1), (72, 2), (72, 1),
+            (152, 2), (152, 1), (288, 2), (288, 1),
+        ),
+        "neck": 64,
+        "head": 64,
+        "stacked": 2,
+        "s2d": 4,
+    },
 }
-UNPORTED_VARIANT = (
-    "only SCRFD variant '500m' is ported; the others are queued in "
-    "ROADMAP.md Queue A item 3"
-)
 
 
 def variant_taps(plan) -> Dict[int, str]:
     """{channel: tap_name} — the three largest widths are strides 8/16/32."""
     chans = sorted({c for c, _ in plan})[-3:]
     return dict(zip(chans, ("c3", "c4", "c5")))
+
+
+def infer_variant(tree: Dict) -> str:
+    """The variant of a param tree, from its block type, block count and
+    output widths (500m and 500m_s2d share widths from 40 up and differ in
+    their block count)."""
+    backbone = tree["backbone"]
+    is_dense = "conv" in backbone[0]
+    key = "conv" if is_dense else "pw"
+    for name, spec in SCRFD_VARIANTS.items():
+        plan = spec["plan"][1:]
+        if bool(spec.get("dense")) != is_dense or len(plan) != len(backbone):
+            continue
+        if all(np.shape(blk[key]["w"])[-1] == cout for (cout, _), blk in zip(plan, backbone)):
+            return name
+    raise ValueError("params do not match any known SCRFD variant")
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, H, W, C) → (B, H/r, W/r, r*r*C), channel (dy*r + dx)*C + c: the
+    JAX reshape/transpose order (F.pixel_unshuffle is channel-major)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // r, w // r, c * r * r)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -68,12 +130,15 @@ class DWSepBlock(nn.Module):
     def forward(self, x, compute_dtype):
         return self.pw(self.dw(x, compute_dtype), compute_dtype)
 
+    def fold(self) -> "DWSepBlock":
+        return DWSepBlock(self.dw.fold(), self.pw.fold())
+
 
 class SCRFD(nn.Module):
     def __init__(
         self,
         stem: ConvUnit,
-        backbone: List[DWSepBlock],
+        backbone: List[Union[DWSepBlock, ConvUnit]],
         neck: Dict[str, Conv],
         head_convs: List[ConvUnit],
         cls: Conv,
@@ -83,10 +148,9 @@ class SCRFD(nn.Module):
         variant: str = "500m",
     ):
         super().__init__()
-        if variant not in SCRFD_VARIANTS:
-            raise NotImplementedError(UNPORTED_VARIANT)
         self.variant = variant
         self.plan = SCRFD_VARIANTS[variant]["plan"]
+        self.s2d = int(SCRFD_VARIANTS[variant].get("s2d", 0))
         self.stem = stem
         self.backbone = nn.ModuleList(backbone)
         self.neck = nn.ModuleDict(neck)
@@ -98,7 +162,10 @@ class SCRFD(nn.Module):
         self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32
     ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         dt = compute_dtype
-        y = self.stem(x.to(dt).permute(0, 3, 1, 2), dt)
+        x = x.to(dt)
+        if self.s2d:
+            x = space_to_depth(x, self.s2d)
+        y = self.stem(x.permute(0, 3, 1, 2), dt)
         tap_names = variant_taps(self.plan)
         taps = {}
         for (cout, stride), blk in zip(self.plan[1:], self.backbone):
@@ -138,7 +205,13 @@ def fold_inference_params(model: SCRFD) -> SCRFD:
     SCRFD BNs are post-conv, so the whole net folds exactly."""
     out = copy.deepcopy(model)
     out.stem = out.stem.fold()
-    for blk in out.backbone:
-        blk.dw, blk.pw = blk.dw.fold(), blk.pw.fold()
+    out.backbone = nn.ModuleList(blk.fold() for blk in out.backbone)
     out.head_convs = nn.ModuleList(u.fold() for u in out.head_convs)
     return out
+
+
+def num_params(model: SCRFD) -> int:
+    """Leaves of the JAX tree the model holds: weights, biases, BN
+    statistics, PReLU slopes and the three per-stride scales."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return sum(t.numel() for t in tensors) + len(model.scales)

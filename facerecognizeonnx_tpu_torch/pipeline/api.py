@@ -20,8 +20,13 @@ the native runtime (`runtime/native.py`), and `detect_files` reads,
 decodes and letterboxes files with its threaded loader, as the
 reference does.
 
+The detector is any SCRFD variant (`cfg.scrfd_variant`), the recognizer
+any arch of `cfg.rec_arch` (IResNet, MobileFaceNet, ViT);
+`FaceRecognizer.quantize` makes it w8a8 (`models/quant.py`), as does
+`cfg.recognizer_quant="w8a8"` at load.
+
 Not ported yet, and raising NotImplementedError: `.onnx` weights
-(ROADMAP.md Queue A item 15) and w8a8 `quantize` (item 12).
+(ROADMAP.md Queue A item 15).
 """
 
 from __future__ import annotations
@@ -38,15 +43,13 @@ from facerecognizeonnx_tpu_torch.detect.pipeline import detect_program, postproc
 from facerecognizeonnx_tpu_torch.embed.pipeline import embed_program, embed_simple_program
 from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.io.imageio import imread
-from facerecognizeonnx_tpu_torch.models import UNPORTED_RECOGNIZER, arcface, scrfd
-from facerecognizeonnx_tpu_torch.models.arcface import IRESNET_SPECS
+from facerecognizeonnx_tpu_torch.models import quant, recognizer_module_for, scrfd
 from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.runtime import native
 from facerecognizeonnx_tpu_torch.types import Detections, FaceBox, face_boxes_to_arrays
 from facerecognizeonnx_tpu_torch.utils import checkpoint
 
 UNPORTED_ONNX = "ONNX weights are not ported yet (ROADMAP.md Queue A item 15)"
-UNPORTED_QUANT = "w8a8 recognizer quantization is not ported yet (ROADMAP.md Queue A item 12)"
 
 
 def _load_tree(path: Optional[str], init_fn):
@@ -241,21 +244,20 @@ class FaceDetector:
 
 
 class FaceRecognizer:
-    """ArcFace embedder + comparator (IResNet family)."""
+    """Face embedder + comparator (IResNet, MobileFaceNet or ViT)."""
 
     def __init__(self, config: PipelineConfig = DEFAULT_CONFIG, device="cuda"):
         self.cfg = config
         self.device = resolve_device(device)
-        self.params = None  # the IResNet module, once loaded
+        self.params = None  # the recognizer module, once loaded
 
     def load_model(self, model_path: Optional[str] = None) -> bool:
         """Weights from `.npz` (either package's checkpoint format), or
         with model_path=None a random init from `cfg.seed + 1`
         (`bridge.init_params_numpy`, whose values differ from the JAX
-        package's `jax.random` init). Post-conv BNs are folded. False on
-        a missing or corrupt file."""
-        if self.cfg.rec_arch not in IRESNET_SPECS:
-            raise NotImplementedError(UNPORTED_RECOGNIZER)
+        package's `jax.random` init). Post-conv BNs are folded (each
+        family's `fold_inference_params`). False on a missing or corrupt
+        file."""
         try:
             tree = _load_tree(
                 model_path,
@@ -270,7 +272,7 @@ class FaceRecognizer:
             print(f"Error loading model: {e}")
             return False
         if model.features_bn is not None:
-            model = arcface.fold_inference_params(model)
+            model = recognizer_module_for(model).fold_inference_params(model)
         self.params = model
         print("Face recognizer model loaded successfully!")
         print(f"Using input size: {self.cfg.rec_input_size}x{self.cfg.rec_input_size}")
@@ -280,8 +282,31 @@ class FaceRecognizer:
 
     loadModel = load_model
 
-    def quantize(self, calib_crops: Optional[np.ndarray] = None, min_channels: int = 0):
-        raise NotImplementedError(UNPORTED_QUANT)
+    def quantize(self, calib_crops: Optional[np.ndarray] = None, min_channels: int = 0) -> bool:
+        """Switch the loaded recognizer to w8a8 int8 (`models/quant.py`).
+
+        calib_crops: (N, S, S, 3) uint8 BGR aligned crops for the
+        activation calibration; by default 64 crops of noise drawn from
+        `cfg.seed` (the JAX package's batch). min_channels quantizes only
+        the convs at least that wide. False when no model is loaded or it
+        is already quantized."""
+        if self.params is None:
+            print("Model not loaded!")
+            return False
+        if quant.is_quantized(self.params):
+            print("Recognizer is already quantized")
+            return False
+        s = self.cfg.rec_input_size
+        if calib_crops is None:
+            rng = np.random.default_rng(self.cfg.seed)
+            calib_crops = rng.integers(0, 256, (64, s, s, 3)).astype(np.uint8)
+        x = normalize_to_rgb(
+            torch.from_numpy(np.ascontiguousarray(calib_crops)).to(self.device),
+            self.cfg.pixel_mean, self.cfg.pixel_scale, dtype=self.cfg.torch_compute_dtype,
+        )
+        self.params = quant.quantize_recognizer(self.params, x, min_channels=min_channels)
+        print("Recognizer quantized to w8a8 int8")
+        return True
 
     def extract_feature(self, image: np.ndarray, face: FaceBox) -> np.ndarray:
         """Aligned 512-d L2-normalized feature for one face; an empty

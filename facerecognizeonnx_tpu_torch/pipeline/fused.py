@@ -3,7 +3,8 @@
 Port of `facerecognizeonnx_tpu/pipeline/fused.py`, the port's main
 entry points: normalize → SCRFD → decode → top-k → NMS → per-face
 Umeyama align → warp (the CUDA kernel with `warp_impl="cuda"`) →
-IResNet → L2 norm, and optionally the gallery similarity top-k.
+the recognizer (IResNet, MobileFaceNet, ViT, or a w8a8 copy) → L2 norm,
+and optionally the gallery similarity top-k.
 """
 
 from __future__ import annotations

@@ -94,7 +94,7 @@ class IdentifyService:
         valid_cap: Optional[int] = None,
         device="cuda",
     ):
-        """det_params / arc_params: the SCRFD and IResNet modules (e.g.
+        """det_params / arc_params: the SCRFD and recognizer modules (e.g.
         `FaceDetector.params`, `FaceRecognizer.params`) on `device`."""
         for name, value in (("sharded", sharded), ("aot", aot), ("mesh", mesh)):
             if value:

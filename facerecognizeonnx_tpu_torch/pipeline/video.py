@@ -42,7 +42,7 @@ class VideoPipeline:
         adaptive_embed: bool = False,
         device="cuda",
     ):
-        """det_params / arc_params: the SCRFD and IResNet modules on
+        """det_params / arc_params: the SCRFD and recognizer modules on
         `device`. adaptive_embed=True runs the occupancy-adaptive
         bucketed pipeline (pipeline/bucketed.py) instead of the dense
         path: the embed follows the detected faces, not all K slots. Its

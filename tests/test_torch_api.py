@@ -145,12 +145,16 @@ def test_load_model_contract(loaded, tmp_path):
     assert det.load_model() and rec.load_model()
     assert det.params.stem.bn is None and rec.params.features_bn is None
     assert rec.extract_feature_simple(images[0]).shape == (512,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rec.quantize()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceRecognizer(dataclasses.replace(CFG, recognizer_quant="w8a8"), device="cpu").load_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceRecognizer(dataclasses.replace(CFG, rec_arch="mbf"), device="cpu").load_model()
+    # w8a8 (tests/test_torch_quant.py holds it against the JAX package)
+    assert not FaceRecognizer(CFG, device="cpu").quantize()  # nothing loaded
+    crops = np.stack([images[0][:112, :112]] * 4)
+    assert rec.quantize(crops, min_channels=128) and not rec.quantize(crops)
+    assert rec.extract_feature_simple(images[0]).shape == (512,)
+    # the other recognizer families load from seeds too (tests/test_torch_packs.py)
+    mbf = FaceRecognizer(dataclasses.replace(CFG, rec_arch="mbf"), device="cpu")
+    assert mbf.load_model() and mbf.params.features_bn is None
+    with pytest.raises(ValueError, match="rec_arch"):
+        dataclasses.replace(CFG, rec_arch="mbf_tiny")
     assert FaceDetector(CFG, device="cpu").detect_files(["a.jpg"]) == [[]]  # not loaded
 
 

@@ -27,6 +27,10 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.models.layers",
     "facerecognizeonnx_tpu_torch.models.scrfd",
     "facerecognizeonnx_tpu_torch.models.arcface",
+    "facerecognizeonnx_tpu_torch.models.mobilefacenet",
+    "facerecognizeonnx_tpu_torch.models.vit",
+    "facerecognizeonnx_tpu_torch.models.quant",
+    "facerecognizeonnx_tpu_torch.models.packs",
     "facerecognizeonnx_tpu_torch.detect.decode",
     "facerecognizeonnx_tpu_torch.detect.pipeline",
     "facerecognizeonnx_tpu_torch.embed.pipeline",

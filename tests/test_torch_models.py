@@ -16,6 +16,7 @@ import torch
 from facerecognizeonnx_tpu.models import arcface, scrfd
 from facerecognizeonnx_tpu.models.layers import update_bn_stats
 from facerecognizeonnx_tpu_torch import bridge
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.models import recognizer_apply
 from facerecognizeonnx_tpu_torch.models import arcface as t_arcface
 from facerecognizeonnx_tpu_torch.models import scrfd as t_scrfd
@@ -213,17 +214,22 @@ def test_init_params_numpy_matches_jax_shapes(arch, det_params, r18_params):
 
 
 def test_unported_models_raise():
-    # a tree whose widths follow another variant's plan (2.5g: 28/56/112...)
+    """Every model family of the JAX package is ported: a tree or arch the
+    port does not know is an error, not a missing feature (only `.onnx`
+    weights still raise NotImplementedError, tests/test_torch_api.py)."""
+    # a tree whose widths follow no variant's plan
     tree = bridge.init_params_numpy("500m")
-    tree["backbone"][0]["pw"]["w"] = np.zeros((1, 1, 16, 28), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    tree["backbone"][0]["pw"]["w"] = np.zeros((1, 1, 16, 30), np.float32)
+    with pytest.raises(ValueError, match="SCRFD variant"):
         bridge.params_from_numpy(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bridge.init_params_numpy("10g")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bridge.params_from_numpy({"body": {}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown arch"):
+        bridge.init_params_numpy("20g")
+    with pytest.raises(ModelLoadError):
+        bridge.params_from_numpy({"trunk": {}}, device="cpu")
+    with pytest.raises(TypeError, match="not a recognizer"):
         recognizer_apply(torch.nn.Identity(), torch.zeros(1, 112, 112, 3), torch.float32)
+    for arch in ("10g", "mbf", "vit_t"):
+        assert bridge.params_from_numpy(bridge.init_params_numpy(arch), device="cpu") is not None
 
 
 def test_bridge_defaults_to_the_card(monkeypatch):

@@ -16,9 +16,12 @@ profiles STEPS calls of `frames_to_matches` with torch.profiler and prints:
 
 Usage, from the repo root on a GPU host:
 
-    python3 tools/profile_torch_main_path.py [TRACE.json] [--gallery] [--warp-ym]
+    python3 tools/profile_torch_main_path.py [TRACE.json] [--pack NAME] [--gallery] [--warp-ym]
 
 With a path, the chrome trace of the profiled steps is written there.
+With --pack NAME the detector and recognizer are the named buffalo
+pack's (`models/packs.load_pack`, seeded weights, chip_smoke's
+detections recipe) instead of SCRFD-500m and IResNet-50.
 With --gallery it also splits the gallery top-k kernel's time
 (csrc/gallery_topk.cu at Q=128, G=100,000, D=512; k = 5, 32, 512): it
 builds two copies of the source in gallery_variants/ beside the trace
@@ -69,16 +72,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    argv = sys.argv[1:]
+    pack = None
+    if "--pack" in argv:
+        i = argv.index("--pack")
+        pack = argv[i + 1]
+        del argv[i:i + 2]
     dev = torch.device("cuda", 0)
     B, K, TOP_K, N_ROWS, G_PAD = 8, 8, 5, 10_000, 16_384
     rng = np.random.default_rng(0)
     cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
     frames = torch.from_numpy(rng.integers(0, 256, (B, 640, 640, 3), dtype=np.uint8)).to(dev)
-    det_tree = detection_bias(bridge.init_params_numpy("500m", seed=0), frames)
-    det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree, dev))
-    rec = arcface.fold_inference_params(
-        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1), dev)
-    )
+    if pack:
+        from chip_smoke import bias_detector
+        from facerecognizeonnx_tpu_torch.models.packs import load_pack
+
+        face_det, face_rec = load_pack(pack, device=dev)
+        bias_detector(face_det, frames)
+        det, rec = face_det.params, face_rec.params
+        print(f"pack {pack}: {face_det.cfg.scrfd_variant} + {face_rec.cfg.rec_arch}")
+    else:
+        det_tree = detection_bias(bridge.init_params_numpy("500m", seed=0), frames)
+        det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree, dev))
+        rec = arcface.fold_inference_params(
+            bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1), dev)
+        )
     bank = torch.zeros((G_PAD, 512), device=dev)
     bank[:N_ROWS] = torch.nn.functional.normalize(torch.randn(N_ROWS, 512, device=dev), dim=-1)
 
@@ -135,14 +153,14 @@ def main() -> int:
     for e in kernels[:25]:
         print(f"  {e.self_device_time_total / 1e3 / STEPS:8.3f}  {e.count // STEPS:4d}  "
               f"{e.key[:110]}")
-    paths = [a for a in sys.argv[1:] if not a.startswith("--")]
+    paths = [a for a in argv if not a.startswith("--")]
     if paths:
         os.makedirs(os.path.dirname(os.path.abspath(paths[0])), exist_ok=True)
         prof.export_chrome_trace(paths[0])
     out = os.path.dirname(os.path.abspath(paths[0])) if paths else "."
-    if "--gallery" in sys.argv:
+    if "--gallery" in argv:
         gallery_split(dev, os.path.join(out, "gallery_variants"))
-    if "--warp-ym" in sys.argv:
+    if "--warp-ym" in argv:
         warp_split(dev, os.path.join(out, "warp_variants"))
     return 0
 
