@@ -38,7 +38,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      raw and xpass_bf16 crops and the whole call on phase 3's 640x640
      frames (B=16, K=8) and 251x317 frames; its path `warp_cuda.
      warp_affine` (default layout): 1 pyramid + 1 warp_ym launch per call,
-     counted and traced; resample, xpass_bf16 and whole-call times, graph
+     counted, and traced over 3 calls (only those two kernels, at most 2
+     operations a call); resample, xpass_bf16 and whole-call times, graph
      and eager, beside their bounds and the plain versions'
 
   7. the gallery top-k kernel vs its plain version for k in {1, 5, 32,
@@ -97,7 +98,33 @@ Phases (any failure exits non-zero; there is no CPU path):
      package's own w8a8 of the same seeded IResNet-50 reads 0.843 there
      on the CPU); step ms and faces/s (median of 10) and the device
      operations of a step
- 12. one JSON line of the kernels, the nvidia-smi line, and last
+ 12. the serving surface on phase 9's models (SCRFD-500m 640, IResNet-50
+     bf16, warp_impl="cuda"): (a) `make_server` over a bank of 64 enrolled
+     frames plus 936 random rows, with Bearer auth, driven by
+     `IdentifyClient`: healthz, a 401 without the token, 4 enrolls from PNG
+     bytes, 32 /identify from 8 client threads, a 16-frame identify_stream,
+     a DELETE and a /metrics scrape; the payloads held against the
+     server's IdentifyService on the decoded images (faces and boxes
+     equal, names equal clear of near-ties, sims within 1e-3: a frame's
+     bf16 features move with its row in the batch, `SERVED_SIM_BAR`),
+     req/s and p50/p99 of both; then 8 requests one at a time, each row 0
+     of its own batch on both sides: sims within 1e-4; (b) `TrackingVideoPipeline`
+     over 32 frames of 640x480 (4 scenes of the VideoSource synthetic
+     recipe, each held 8 frames: random-weight detectors find other faces
+     after any shift), dense and adaptive, batch 4, refresh_every 8: ids
+     persist through a scene, embed_frames < total, 1 warp_xm + 1 pyramid
+     launch per refresh dispatch, no refresh slot holding another face
+     than the detect-only run's (`slot_mismatches`), labels equal,
+     embed_fraction and frames/s; (c) the CLI in process with --json
+     (detect bulk and single, compare, simple, enroll, identify single and
+     multi-probe, webcam --track --enroll-first, doctor), each stdout
+     parsed as one JSON document, detect and compare with `imwrite`
+     replaced by a recorder (the GPU host has neither cv2 nor PIL), then
+     `python3 -m facerecognizeonnx_tpu_torch serve` in its own process:
+     POST /enroll, SIGTERM, exit 0 with the gallery saved; wall times.
+     Images reach the port as PNG bytes: the GPU host's native runtime
+     builds without codecs, so `io.imageio.decode_png` reads them
+ 13. one JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
@@ -123,12 +150,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
+import io
 import json
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -136,12 +168,14 @@ import numpy as np
 import torch
 
 from facerecognizeonnx_tpu_torch import FaceDetector, FaceRecognizer, bridge
+from facerecognizeonnx_tpu_torch.cli import main as cli_main
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
 from facerecognizeonnx_tpu_torch.embed.pipeline import (
     _align_matrices,
     align_faces_batch,
     embed_crops,
 )
+from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, decode_image
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.models import arcface, packs, quant, scrfd
@@ -149,13 +183,16 @@ from facerecognizeonnx_tpu_torch.ops import gallery_cuda, nms, warp_cuda
 from facerecognizeonnx_tpu_torch.ops.image import letterbox
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.pipeline import bucketed
+from facerecognizeonnx_tpu_torch.pipeline.client import IdentifyClient, ServiceError
 from facerecognizeonnx_tpu_torch.pipeline.enroll import enroll_batch
 from facerecognizeonnx_tpu_torch.pipeline.fused import (
     detect_topk,
     frames_to_features,
     frames_to_matches,
 )
+from facerecognizeonnx_tpu_torch.pipeline.server import _faces_payload, make_server
 from facerecognizeonnx_tpu_torch.pipeline.service import IdentifyService, _Request
+from facerecognizeonnx_tpu_torch.pipeline.track import TrackingVideoPipeline
 from facerecognizeonnx_tpu_torch.pipeline.video import VideoPipeline
 from facerecognizeonnx_tpu_torch.runtime import native
 from facerecognizeonnx_tpu_torch.utils import checkpoint
@@ -247,22 +284,31 @@ def in_turns(*timers, iters=20):
     return [statistics.median(r[i] for r in rounds) for i in range(len(timers))]
 
 
-def device_ops(fn):
-    """(device operations traced, kernel launches called) in one call of fn,
-    under torch.profiler; 0 where the profiler sees nothing."""
+def device_trace(fn, calls=1):
+    """(the names of the device operations traced, kernel launches called)
+    in `calls` calls of fn under one torch.profiler window; no names where
+    the profiler sees nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     events = prof.events()
-    traced = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    names = [e.name for e in events if e.device_type == DeviceType.CUDA]
     called = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                                  "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-    return traced, called
+    return names, called
+
+
+def device_ops(fn):
+    """(device operations traced, kernel launches called) in one call of fn,
+    under torch.profiler; 0 where the profiler sees nothing."""
+    names, called = device_trace(fn)
+    return len(names), called
 
 
 def wall_ms(fn, iters=10, warmup=3) -> float:
@@ -458,20 +504,40 @@ def letterbox_numpy(img: np.ndarray, dsize: int):
     return out, float(scale)
 
 
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of the array, written with the standard library."""
+def png_bytes(pixels: np.ndarray, filter_type: int = 0) -> bytes:
+    """An 8-bit PNG of the array, written with the standard library: grey
+    (H, W) or (H, W, 1), grey + alpha (H, W, 2), RGB (H, W, 3) or RGBA
+    (H, W, 4); every scanline filtered with `filter_type` (0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth)."""
     import struct
     import zlib
 
-    h, w, _ = rgb.shape
+    h, w = pixels.shape[:2]
+    px = pixels.reshape(h, w, -1)
+    ch = px.shape[2]
+    x = px.reshape(h, w * ch).astype(np.int16)
+    a = np.zeros_like(x)  # the byte one pixel left, the byte above, and above-left
+    a[:, ch:] = x[:, :-ch]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, ch:] = x[:-1, :-ch]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = (np.zeros_like(x), a, b, (a + b) // 2, paeth)[filter_type]
+    rows = np.concatenate(
+        [np.full((h, 1), filter_type, np.uint8), ((x - pred) % 256).astype(np.uint8)], axis=1
+    )
 
     def chunk(tag, data):
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
 
 
 def check_features(feats, valid, n_rows=None, idx=None):
@@ -709,16 +775,18 @@ def phase_ymajor(frames, Ms, odd, odd_Ms, K) -> dict:
         f"warp_affine(layout='ymajor') launches {counts}, want 1 pyramid + 1 warp_ym"
     assert counts["warp_xm"] == 0 and counts["gallery_topk"] == 0, counts
     assert torch.equal(out, warp_cuda.resample_ym(frames, pyr, Ms)[0])
-    # a trace can come back short of an event (a run on an H100 traced 1 of
-    # the 2 launches the counters had counted): take up to 3 traces; none
-    # may show more than 2 operations, and one must show 2 (or the
-    # profiler sees nothing at all)
-    traces = []
-    while len(traces) < 3 and all(t != 2 for t, _ in traces):
-        traces.append(device_ops(lambda: warp_cuda.warp_affine(frames, Ms)))
-    traced, called = max(traces)
-    assert max(t for t, _ in traces) <= 2 and (traced == 2 or not any(t for t, _ in traces)), \
-        f"warp_affine(layout='ymajor') traces {traces}"
+    # every device operation of the call is one of its two kernels: a
+    # trace can come back short of an event (runs on an H100 traced 1 of
+    # the 2 launches the counters had counted, three single-call traces in
+    # a row), so 3 calls are traced in one window: at most 2 operations a
+    # call, each a pyramid or warp_ym launch, both seen (or the profiler
+    # sees nothing at all)
+    names, called = device_trace(lambda: warp_cuda.warp_affine(frames, Ms), calls=3)
+    kinds = {"pyramid" if "pyramid_kernel" in n else "warp_ym" if "warp_ym_kernel" in n else n
+             for n in names}
+    traced = len(names)
+    assert traced <= 2 * 3 and (kinds == {"pyramid", "warp_ym"} or not names), \
+        f"warp_affine(layout='ymajor') traces {names} ({called} launches called in 3 calls)"
 
     t_res, t_bf16, t_res_plain, t_bf16_plain, t_all, t_all_plain, t_all_eager, t_res_eager = \
         in_turns(
@@ -744,7 +812,8 @@ def phase_ymajor(frames, Ms, odd, odd_Ms, K) -> dict:
         f"the whole warp_affine call (B={B}, K={K}, {H}x{W}, levels {levels}; 2 frames of "
         f"{odd.shape[1]}x{odd.shape[2]}): max|d| {err:.3g} (bar: torch.equal); warp_affine(default "
         f"layout) launches: pyramid {counts['warp_xm_pyramid']}, warp_ym {counts['warp_ym']}; "
-        f"device operations traced / kernel launches called: {traced} / {called}")
+        f"device operations traced / kernel launches called in 3 calls: {traced} / {called}, "
+        f"each a pyramid or warp_ym launch")
     log(f"warp_ym times (B={B}, K={K}, {H}x{W}, raw f32 unless noted; median of 20, in turns): "
         f"resample kernel (table included) {t_res:.4f} ms | plain (face_params_ym + "
         f"resample_ym_reference) {t_res_plain:.4f} | bound {res_bound:.4f} ({res_by}); "
@@ -1360,6 +1429,328 @@ def phase_families(dev, frames, bank, n_rows, K, top_k, smi):
     return rows
 
 
+def _cli_json(argv):
+    """One in-process CLI run with --json: (the parsed stdout, which must
+    be exactly one JSON document, wall s). Human output is kept aside and
+    shown only if the run fails."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main.main(argv + ["--json"])
+    wall = time.perf_counter() - t0
+    assert rc == 0, (argv, rc, err.getvalue()[-3000:])
+    return json.loads(out.getvalue()), wall
+
+
+# A frame's bf16 features on the card depend on its row in the batch (up
+# to 6.48e-4 max|d| between two rows, bit-equal in the same row whatever
+# the other frames: tools/diag_serving_determinism.py), and a server
+# coalesces requests into rows by their timing; so sims are held to
+# 1e-3 > |Δf|/2 + the payload's rounding (5e-5), and names where sims
+# stand further than twice that apart
+SERVED_SIM_BAR = 1e-3
+
+
+def _same_faces(got, want, where, bar=SERVED_SIM_BAR):
+    """Two face lists of the payload (`/identify`, the stream, or an
+    IdentifyResult through `_faces_payload`): the same faces and boxes
+    (rounded to 0.01 px), the top-1 name equal, the other names equal
+    where the sims are clear of near-ties, sims within `bar`. Returns
+    max |Δsim|."""
+    assert len(got) == len(want) > 0, (where, len(got), len(want))
+    err = 0.0
+    for g, w in zip(got, want):
+        assert np.abs(np.asarray(g["box"]) - w["box"]).max() <= 0.011, (where, g["box"], w["box"])
+        ws = np.asarray(w["sims"])
+        err = max(err, float(np.abs(np.asarray(g["sims"]) - ws).max()))
+        gaps = np.abs(np.diff(ws)) > 2 * bar
+        clear = np.concatenate([[True], gaps]) & np.concatenate([gaps, [True]])
+        clear[0] = True
+        assert [n for n, c in zip(g["names"], clear) if c] == \
+            [n for n, c in zip(w["names"], clear) if c], (where, g["names"], w["names"])
+    assert err <= bar, (where, err)
+    return err
+
+
+def phase_serving(dev, rng, det, rec, video_hw=(480, 640), cli_args=()):
+    """The serving surface (module docstring, phase 12): the HTTP server and
+    client, the tracker, the CLI in-process and `serve` in its own process.
+    video_hw: the tracker's and the webcam's frame size; cli_args: flags
+    added to every CLI run (a rehearsal on the CPU passes --cpu and small
+    sizes)."""
+    cfg = det.cfg
+    size, n_bank, top_k = cfg.det_input_size, 1_000, 5
+    t_phase = time.perf_counter()
+
+    # ---- (a) HTTP: make_server + IdentifyClient
+    frames = rng.integers(0, 256, (68, size, size, 3), dtype=np.uint8)
+    bank, kept = enroll_batch(det, rec, [f"person{i:02d}" for i in range(64)], list(frames[:64]),
+                              device=dev)
+    assert len(kept) == 64, f"enrolled {len(kept)} of 64 frames"
+    extra = np.random.default_rng(9).normal(size=(n_bank - 64, 512)).astype(np.float32)
+    bank.add_batch([f"random{i}" for i in range(len(extra))], extra)
+    pngs = [png_bytes(np.ascontiguousarray(f[..., ::-1])) for f in frames]
+    token = "chip-smoke"
+    reset_counts()
+    server = make_server(det, rec, bank, port=0, auth_token=token, device=dev)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        port = server.server_address[1]
+        client = IdentifyClient("127.0.0.1", port, token=token, timeout=300)
+        assert client.healthz() == {"status": "ok", "gallery_size": n_bank}
+        try:
+            IdentifyClient("127.0.0.1", port, timeout=60).healthz()
+            raise AssertionError("a request without the token was answered")
+        except ServiceError as e:
+            assert e.status == 401, e.status
+        for i in range(64, 68):  # 4 new names, enrolled from PNG bytes
+            assert client.enroll(f"new{i}", pngs[i])["enrolled"], i
+        assert len(bank) == n_bank + 4
+        probes = list(range(60, 68))  # 4 enrolled at start, 4 over HTTP
+        order = [probes[i % len(probes)] for i in range(32)]
+
+        def ask(i):
+            t0 = time.perf_counter()
+            faces = client.identify(pngs[i], top_k=top_k)
+            return faces, (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(ask, order))
+        http_wall = time.perf_counter() - t0
+        stream_frames = [probes[i % len(probes)] for i in range(16)]
+        lines = list(client.identify_stream((pngs[i] for i in stream_frames), top_k=top_k))
+        # the same decoded images through the server's IdentifyService in process
+        images = [decode_image(pngs[i]) for i in order]
+        assert all(np.array_equal(im, frames[i]) for im, i in zip(images, order))
+        svc = server.frt_service
+        done = {}
+        t0 = time.perf_counter()
+        futs = [svc.identify_async(im, top_k) for im in images]
+        for j, f in enumerate(futs):
+            f.add_done_callback(lambda _, j=j: done.__setitem__(j, time.perf_counter()))
+        results = [f.result(300) for f in futs]
+        svc_wall = time.perf_counter() - t0
+        svc_lat = np.array([(done[j] - t0) * 1e3 for j in range(len(futs))])
+        http_err = stream_err = 0.0
+        for j, ((faces, _), res) in enumerate(zip(answers, results)):
+            want = _faces_payload(res, top_k)
+            http_err = max(http_err, _same_faces(faces, want, f"/identify {j}"))
+            name = f"person{order[j]:02d}" if order[j] < 64 else f"new{order[j]}"
+            assert faces[0]["names"][0] == name, (j, faces[0]["names"], name)
+        assert [x["frame"] for x in lines] == list(range(16)), "stream out of order"
+        for x, i in zip(lines, stream_frames):
+            stream_err = max(stream_err, _same_faces(
+                x["faces"], answers[order.index(i)][0], f"stream frame {x['frame']}"))
+        # one request at a time: each frame is row 0 of its own batch on both
+        # sides, so the served sims equal the service's up to the payload's
+        # rounding to 4 places; their latencies split off the HTTP layer's
+        # share (PNG decode, JSON, sockets) of one request
+        seq_err, seq_http, seq_svc = 0.0, [], []
+        for i in probes:
+            t0 = time.perf_counter()
+            want = _faces_payload(svc.identify(decode_image(pngs[i]), top_k), top_k)
+            t1 = time.perf_counter()
+            got = client.identify(pngs[i], top_k=top_k)
+            seq_svc.append((t1 - t0) * 1e3)
+            seq_http.append((time.perf_counter() - t1) * 1e3)
+            seq_err = max(seq_err, _same_faces(got, want, f"sequential /identify {i}", bar=1e-4))
+        removed = client.remove("new64")
+        assert removed["removed"] == 1 and removed["gallery_size"] == n_bank + 3
+        faces = client.identify(pngs[64], top_k=top_k)
+        assert faces and "new64" not in faces[0]["names"]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/metrics", headers={"Authorization": f"Bearer {token}"})
+        resp = conn.getresponse()
+        metrics = resp.read().decode()
+        conn.close()
+        assert resp.status == 200 and f"frt_gallery_size {n_bank + 3}" in metrics
+        assert 'frt_latency_ms{quantile="0.99"}' in metrics
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.frt_service.close()
+    http_counts = read_counts()
+    assert http_counts["warp_xm"] > 0, "the HTTP path did not launch the warp kernel"
+    http_lat = np.array([ms for _, ms in answers])
+    log(f"HTTP serving (make_server, SCRFD-500m {size} + {cfg.rec_arch} {cfg.compute_dtype}, "
+        f"bank {n_bank:,} rows + 4 enrolled over HTTP from PNG bytes, Bearer auth, max_batch=8, "
+        f"top_k={top_k}): healthz, 401 without the token, 32 /identify from 8 client threads: "
+        f"{32 / http_wall:.1f} req/s, p50 {np.percentile(http_lat, 50):.1f} ms p99 "
+        f"{np.percentile(http_lat, 99):.1f} ms (client clock) | the same 32 decoded images "
+        f"through the server's IdentifyService in process: {32 / svc_wall:.1f} req/s, p50 "
+        f"{np.percentile(svc_lat, 50):.1f} ms p99 {np.percentile(svc_lat, 99):.1f} ms; payloads "
+        f"vs the service's answers: faces and boxes equal, names equal clear of near-ties, "
+        f"sims max|d| {http_err:.3g} (bar {SERVED_SIM_BAR:g}: a frame's row in the batch moves "
+        f"bf16 features); {len(probes)} sent one at a time, each row 0 of its own batch as in "
+        f"process: sims max|d| {seq_err:.3g} (bar 1e-4), median ms HTTP "
+        f"{np.median(seq_http):.1f} | in process (decode included) {np.median(seq_svc):.1f}; "
+        f"each probe's top-1 its own name; a 16-frame identify_stream in frame order vs the "
+        f"/identify answers: sims max|d| {stream_err:.3g}; DELETE new64 then "
+        f"absent; /metrics scraped; launches {http_counts} | card: {nvidia_smi()}")
+
+    # ---- (b) the tracker: 4 scenes of the VideoSource recipe, 8 frames each
+    vh, vw = video_hw
+    scenes = list(VideoSource(f"synthetic:{vw}x{vh}x4").frames())
+    video = [scenes[i // 8] for i in range(32)]
+    first = det.detect(video[0])
+    assert first, "the tracker's first frame has no face"
+    ref = rec.extract_feature(video[0], first[0])
+    runs = {}
+    for adaptive in (False, True):
+        pipe = TrackingVideoPipeline(det.params, rec.params, cfg, batch=4, refresh_every=8,
+                                     adaptive_embed=adaptive, device=dev)
+        embed, dispatches = pipe._embed, []
+
+        def counted(x, n, embed=embed, dispatches=dispatches):
+            dispatches.append(n)
+            return embed(x, n)
+
+        pipe._embed = counted
+        reset_counts()
+        t0 = time.perf_counter()
+        out = [(i, {k: v.copy() for k, v in d.items()},
+                [None if t is None else (t.track_id, t.label) for t in tracks])
+               for i, d, tracks in pipe.run(iter(video), ref_feature=ref)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = pipe.stats()
+        assert len(out) == 32 and st["total_frames"] == 32, st
+        assert 0 < st["embed_frames"] < st["total_frames"], st
+        assert counts["warp_xm"] == counts["warp_xm_pyramid"] == len(dispatches) > 0, \
+            (counts, dispatches)
+        assert pipe.slot_mismatches == 0, \
+            f"{pipe.slot_mismatches} refresh slots hold another face than the detect-only run's"
+        ids = [sorted(t[0] for t in slots if t is not None) for _, _, slots in out]
+        assert all(ids[i] == ids[0] for i in range(8)) and ids[0], "track ids did not persist"
+        runs[adaptive] = (out, st, wall, len(dispatches), sum(dispatches), counts)
+    near = n_labels = 0
+    for (_, d, ds), (_, a, as_) in zip(runs[False][0], runs[True][0]):
+        assert np.array_equal(d["valid"], a["valid"]) and np.array_equal(d["boxes"], a["boxes"])
+        for td, ta in zip(ds, as_):
+            assert (td is None) == (ta is None) and (td is None or td[0] == ta[0])
+            if td is not None:
+                n_labels += 1
+                near += td[1] != ta[1]
+    # labels differ only within the bf16 bar of the threshold (phase 10's
+    # video check): each differing one is counted; fewer than 1 in 16 may
+    assert near * 16 <= n_labels, (near, n_labels)
+    (_, sd, wd, nd, fd, cd), (_, sa, wa, na, fa, ca) = runs[False], runs[True]
+    log(f"TrackingVideoPipeline over 32 frames of {vw}x{vh} (4 scenes of the VideoSource "
+        f"synthetic recipe, 8 frames each), batch 4, K=8, refresh_every=8, labels against frame "
+        f"0's first face: dense embed_fraction {sd['embed_fraction']:.3f} "
+        f"({sd['embed_frames']}/32 frames in {nd} refresh dispatches, {fd} real frames), "
+        f"{32 / wd:.1f} frames/s | adaptive embed_fraction {sa['embed_fraction']:.3f} "
+        f"({na} dispatches, last bucket {sa['embed_bucket']}, corrections "
+        f"{sa['embed_corrections']}), {32 / wa:.1f} frames/s; track ids persist across a "
+        f"scene; slots of a refresh run not holding the detect-only run's face: 0 (both); "
+        f"labels equal on {n_labels - near} of {n_labels} tracked slots; launches dense {cd}, "
+        f"adaptive {ca} (1 warp_xm + 1 pyramid per refresh dispatch)")
+
+    # ---- (c) the CLI: in process with --json, then `serve` in its own process
+    modes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(4):
+            paths.append(os.path.join(tmp, f"face{i}.png"))
+            with open(paths[-1], "wb") as f:
+                f.write(pngs[i])
+        det_path = os.path.join(tmp, "det.npz")
+        checkpoint.save_params(det_path, detection_bias(
+            bridge.init_params_numpy(cfg.scrfd_variant, seed=cfg.seed),
+            torch.from_numpy(frames[:4]).to(dev)))
+        gallery = os.path.join(tmp, "gallery.npz")
+        models = ["--det-model", det_path, *cli_args]
+        written = []
+
+        def record(path, image):  # no encoder on this host (module docstring)
+            written.append((os.path.basename(path), image.shape))
+            return True
+
+        reset_counts()
+        real_imwrite = cli_main.imwrite
+        cli_main.imwrite = record
+        try:
+            doc, modes["detect (bulk, 4 files)"] = _cli_json(["detect", *paths, *models])
+            assert doc["total_faces"] > 0 and all(im["faces"] for im in doc["images"]), doc
+            doc, modes["detect"] = _cli_json(["detect", paths[0], *models])
+            assert doc["total_faces"] > 0
+            doc, modes["compare"] = _cli_json(["compare", paths[0], paths[1], *models])
+            assert 0 <= doc["similarity"] <= 1 and len(doc["faces"]) == 2, doc
+        finally:
+            cli_main.imwrite = real_imwrite
+        assert [w[0] for w in written] == ["face0_out.jpg", "face0_out.jpg"], written
+        assert written[0][1] == (size, size, 3) and written[1][1] == (size, 2 * size, 3), written
+        doc, modes["simple"] = _cli_json(["simple", paths[0], paths[1], *models])
+        assert 0 <= doc["similarity"] <= 1
+        doc, modes["enroll (4 files)"] = _cli_json(["enroll", *paths, "--gallery", gallery,
+                                                    *models])
+        assert doc["enrolled"] == ["face0", "face1", "face2", "face3"], doc
+        doc, modes["identify"] = _cli_json(["identify", paths[2], "--gallery", gallery,
+                                            *models])
+        assert doc["faces"][0]["label"] == "face2", doc["faces"][0]
+        doc, modes["identify (4 probes)"] = _cli_json(["identify", *paths, "--gallery", gallery,
+                                                       *models])
+        assert [im["faces"][0]["label"] for im in doc["images"]] == \
+            ["face0", "face1", "face2", "face3"], doc
+        doc, modes["webcam --track"] = _cli_json(
+            ["webcam", f"synthetic:{vw}x{vh}x8", "--track", "--enroll-first", *models])
+        assert doc["frames"] == 8 and doc["track"]["embed_frames"] > 0, doc
+        doc, modes["doctor"] = _cli_json(["doctor", "--gallery", gallery, *cli_args])
+        assert doc["backend"]["platform"] == dev.type and doc["gallery"]["rows"] == 4, doc
+        cli_counts = read_counts()
+        assert cli_counts["warp_xm"] > 0, "the CLI did not launch the warp kernel"
+
+        # `serve` in its own process: start → first answer, SIGTERM → exit
+        serve_gallery = os.path.join(tmp, "served.npz")
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "facerecognizeonnx_tpu_torch", "serve", "--port", "0",
+             "--gallery", serve_gallery, *models],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        seen, t_models = [], None
+        try:
+            port = None
+            for line in proc.stdout:
+                seen.append(line)
+                if t_models is None and "所有模型加载成功" in line:
+                    t_models = time.perf_counter()
+                m = re.search(r"http://[0-9.]+:(\d+)", line)
+                if m:
+                    port = int(m.group(1))
+                    break
+            assert port and t_models, "".join(seen)[-3000:]
+            t_up = time.perf_counter()
+            served = IdentifyClient("127.0.0.1", port, timeout=300).enroll("alice", pngs[3])
+            t_answer = time.perf_counter()
+            assert served["enrolled"], served
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            t_exit = time.perf_counter()
+            assert rc == 0, (rc, proc.stdout.read()[-3000:])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert GalleryBank.load(serve_gallery, device=dev).names == ["alice"]
+    log(f"CLI in process (--json; one JSON document each, parsed; the models at full width, "
+        f"{cfg.rec_arch} seeded, the detector from a .npz; detect and compare end in imwrite, "
+        f"replaced here by a recorder of the image's shape: this host has no encoder), wall s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in modes.items())
+        + f"; identify: each probe's top label its own enrolled name; doctor platform "
+        f"{dev.type}; "
+        f"launches {cli_counts} | `python3 -m facerecognizeonnx_tpu_torch serve` in its own "
+        f"process: start -> models loaded {t_models - t0:.2f} s, -> listening {t_up - t0:.2f} s, "
+        f"-> first answer (POST /enroll) "
+        f"{t_answer - t0:.2f} s; SIGTERM -> exit 0 in {t_exit - t_answer:.2f} s, the gallery "
+        f"saved with the name | phase {time.perf_counter() - t_phase:.1f} s | card: "
+        f"{nvidia_smi()}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1538,8 +1929,12 @@ def main() -> int:
     phase(11)
     phase_families(dev, frames, bank, N_ROWS, K, TOP_K, smi)
 
-    # ---- 12. result lines
+    # ---- 12. the serving surface: HTTP, the tracker, the CLI
     phase(12)
+    phase_serving(dev, rng, *api)
+
+    # ---- 13. result lines
+    phase(13)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",

@@ -9,6 +9,10 @@ match/, pipeline/) on torch tensors. Entry points:
   match.gallery.GalleryBank, pipeline.enroll.enroll_batch,
   pipeline.service.IdentifyService                         1:N identify
   models.packs.load_pack                                   a buffalo pack
+  FaceApp (pipeline/app.py)                                one-object front end
+  TrackingVideoPipeline (pipeline/track.py)                video with a track cache
+  make_server (pipeline/server.py), IdentifyClient         HTTP serving
+  python -m facerecognizeonnx_tpu_torch <mode>             the CLI (cli/main.py)
 
 Each runs on the card unless the caller passes device="cpu". The TPU
 kernels of the JAX package are hand-written CUDA kernels for Hopper
@@ -24,14 +28,24 @@ from facerecognizeonnx_tpu_torch.types import Detections, FaceBox
 
 __all__ = [
     "PipelineConfig", "auto_config", "Detections", "FaceBox",
-    "FaceDetector", "FaceRecognizer",
+    "FaceDetector", "FaceRecognizer", "FaceApp", "IdentifyClient", "make_server",
+    "TrackingVideoPipeline",
 ]
+
+_LAZY = {
+    "FaceDetector": "pipeline.api",
+    "FaceRecognizer": "pipeline.api",
+    "FaceApp": "pipeline.app",
+    "IdentifyClient": "pipeline.client",
+    "make_server": "pipeline.server",
+    "TrackingVideoPipeline": "pipeline.track",
+}
 
 
 def __getattr__(name):
     # lazy: importing the package builds no model
-    if name in ("FaceDetector", "FaceRecognizer"):
-        from facerecognizeonnx_tpu_torch.pipeline import api
+    if name in _LAZY:
+        import importlib
 
-        return getattr(api, name)
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

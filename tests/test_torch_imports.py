@@ -46,6 +46,15 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.pipeline.service",
     "facerecognizeonnx_tpu_torch.pipeline.bucketed",
     "facerecognizeonnx_tpu_torch.pipeline.video",
+    "facerecognizeonnx_tpu_torch.pipeline.track",
+    "facerecognizeonnx_tpu_torch.pipeline.app",
+    "facerecognizeonnx_tpu_torch.pipeline.client",
+    "facerecognizeonnx_tpu_torch.pipeline.server",
+    "facerecognizeonnx_tpu_torch.utils.draw",
+    "facerecognizeonnx_tpu_torch.version",
+    "facerecognizeonnx_tpu_torch.cli",
+    "facerecognizeonnx_tpu_torch.cli.main",
+    "facerecognizeonnx_tpu_torch.__main__",
 ]
 
 REPO = Path(__file__).resolve().parent.parent
