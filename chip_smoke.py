@@ -124,7 +124,36 @@ Phases (any failure exits non-zero; there is no CPU path):
      POST /enroll, SIGTERM, exit 0 with the gallery saved; wall times.
      Images reach the port as PNG bytes: the GPU host's native runtime
      builds without codecs, so `io.imageio.decode_png` reads them
- 13. one JSON line of the kernels, the nvidia-smi line, and last
+ 13. ONNX interop at buffalo_sc width (`phase_onnx`): (a) phase 5's
+     SCRFD-500m (unfolded, cls bias of the detections recipe) and
+     IResNet-50 exported with `onnx_export` (2.4 and 174.5 MB) and loaded
+     back through `FaceDetector.load_model(det.onnx)` (an OnnxRunner) and
+     `FaceRecognizer.load_model(r50.onnx)` (mapped natively, its
+     self-verify cosine printed); export, parse, map and first-call
+     times; the runner's heads against the native SCRFD on the same
+     unfolded weights at bf16 (scores within one bf16 ulp: the fast
+     path's sigmoid rounds to bf16, as JAX's; bbox and kps within
+     REG_BAR); (b) `frames_to_matches` on phase 5's frames and gallery
+     (B=8, K=8, bf16) with the runner detector and the mapped recognizer,
+     then with the recognizer forced through the executor: 1 warp_xm + 1
+     pyramid launch a step each, held against the native models on the
+     same weights (the detector unfolded as the graph is; phase 5's
+     folded SCRFD rounds otherwise at bf16, and that step is printed
+     beside without a bar): valid masks equal, at least 3/4 of the slots
+     paired with a box within BOX_BAR px, feature cosine >= 1 - 1e-3
+     (`realmodels.COSINE_TOL`), gallery rows equal outside near-ties; the
+     mapped recognizer bit-equal to phase 5's on phase 5's crops; step ms
+     and device operations of the native, runner + mapped and runner +
+     executor steps; (c) a det_500m-shaped graph at 640² (`det500m_
+     shaped`: the spec of tests/oracles/scrfd_nas_onnx.py) written with
+     the port's writer: fast vs reference executor within 1e-2 (float32,
+     TF32 off), a B=8 call equal to eight B=1 calls within 1e-4, and
+     `frames_to_matches` through it; (d) the CLI in process: `export
+     out.onnx` (the seeded IResNet-50) and `export --detector` from a
+     .npz, both byte-equal to (a)'s files, `detect` with both .onnx
+     models, and `doctor` with FRT_REAL_MODELS_DIR pointing at (a)'s files
+     under the real names: real-model parity armed and ok
+ 14. one JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
@@ -195,7 +224,7 @@ from facerecognizeonnx_tpu_torch.pipeline.service import IdentifyService, _Reque
 from facerecognizeonnx_tpu_torch.pipeline.track import TrackingVideoPipeline
 from facerecognizeonnx_tpu_torch.pipeline.video import VideoPipeline
 from facerecognizeonnx_tpu_torch.runtime import native
-from facerecognizeonnx_tpu_torch.utils import checkpoint
+from facerecognizeonnx_tpu_torch.utils import checkpoint, realmodels
 
 EPI = (127.5, 128.0)
 # the card's published peaks (H100 SXM data sheet, at 700 W): device
@@ -1751,6 +1780,368 @@ def phase_serving(dev, rng, det, rec, video_hw=(480, 640), cli_args=()):
         f"{nvidia_smi()}")
 
 
+# ---------------------------------------------------------------- phase 13: ONNX
+
+# the det_500m shape (the spec of tests/oracles/scrfd_nas_onnx.py, which
+# this script cannot import: it reaches the JAX package): a NAS residual
+# depthwise backbone, taps at strides 8/16/32, one head trunk per stride
+NAS_BACKBONE = [
+    ("conv", 3, 16, 2), ("dwsep", 16, 16, 1, True), ("dwsep", 16, 24, 2, False),
+    ("dwsep", 24, 24, 1, True), ("dwsep", 24, 40, 2, False), ("dwsep", 40, 40, 1, True),
+    ("dwsep", 40, 72, 2, False), ("dwsep", 72, 72, 1, True), ("dwsep", 72, 112, 2, False),
+    ("dwsep", 112, 112, 1, True),
+]
+NAS_TAPS = {5: 8, 7: 16, 9: 32}  # backbone index → stride
+NAS_HEAD = 32
+# 3 strides × {scores, bbox, kps} in scrambled order, opaque names
+NAS_OUTPUTS = [(8, "kps", 10, "471"), (32, "cls", 1, "451"), (16, "box", 4, "466"),
+               (8, "cls", 1, "443"), (32, "kps", 10, "473"), (8, "box", 4, "462"),
+               (16, "cls", 1, "447"), (16, "kps", 10, "472"), (32, "box", 4, "470")]
+# the bars of utils/realmodels.py: fast vs reference executor, features
+EXEC_BAR = 1e-2
+BOX_BAR = 0.5  # px: a box of the .onnx step paired with one of the native step
+# the graph's heads against the native SCRFD on the same (unfolded)
+# weights at bf16: scores within one bf16 ulp in [0.5, 1) (the fast
+# path's sigmoid rounds to bf16, as JAX's does), bbox and kps in stride
+# units (float32 there: bf16 × the float32 scale promotes)
+SCORE_BAR, REG_BAR = 2.0 ** -8, 0.25
+
+
+def det500m_shaped(seed: int, size: int) -> bytes:
+    """A det_500m-shaped .onnx written with the port's writer: seeded
+    weights (BN statistics non-trivial), each head ending in the torch
+    export glue Transpose → Shape → Gather → Squeeze → Div → Unsqueeze →
+    Concat → Reshape(−1, C), so the outputs are batch-folded (B·H·W·A, C)."""
+    from facerecognizeonnx_tpu_torch.onnx_export import writer as W
+
+    rng = np.random.default_rng(seed)
+    nodes, inits, n = [], [], [0]
+
+    def name(tag):
+        n[0] += 1
+        return f"{tag}_{n[0]}"
+
+    def init(nm, arr):
+        inits.append(W.tensor(nm, np.ascontiguousarray(arr)))
+        return nm
+
+    def op(op_type, inputs, **attrs):
+        out = name(op_type.lower())
+        nodes.append(W.node(op_type, inputs, [out], **attrs))
+        return out
+
+    def conv(x, cin, cout, k, stride, groups=1):
+        out = name("conv")
+        w = rng.standard_normal((cout, cin // groups, k, k)) * (2.0 / (k * k * cin // groups)) ** 0.5
+        init(out + "_w", w.astype(np.float32))
+        init(out + "_b", (rng.standard_normal(cout) * 0.01).astype(np.float32))
+        nodes.append(W.node("Conv", [x, out + "_w", out + "_b"], [out], strides=[stride, stride],
+                            pads=[k // 2] * 4, kernel_shape=[k, k], group=groups))
+        return out
+
+    def bn(x, c):
+        out = name("bn")
+        stats = (rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
+                 rng.standard_normal(c) * 0.1, rng.uniform(0.5, 1.5, c))
+        names = [init(out + s, a.astype(np.float32)) for s, a in zip("gbmv", stats)]
+        nodes.append(W.node("BatchNormalization", [x] + names, [out], epsilon=1e-5))
+        return out
+
+    x, taps = "input", {}
+    for i, spec in enumerate(NAS_BACKBONE):
+        if spec[0] == "conv":
+            _, cin, cout, s = spec
+            x = op("Relu", [bn(conv(x, cin, cout, 3, s), cout)])
+        else:
+            _, cin, cout, s, res = spec
+            y = op("Relu", [bn(conv(x, cin, cin, 3, s, groups=cin), cin)])
+            y = bn(conv(y, cin, cout, 1, 1), cout)
+            x = op("Relu", [op("Add", [x, y])]) if res else op("Relu", [y])
+        if i in NAS_TAPS:
+            taps[NAS_TAPS[i]] = (x, cout)
+    init("neg_one", np.asarray([-1], np.int64))
+    init("anchors_c", np.asarray([2], np.int64))
+    init("axis3", np.asarray([3], np.int64))
+    nodes.append(W.node("Squeeze", ["anchors_c"], ["anchors_c_scalar"], axes=[0]))
+    trunks = {s: op("Relu", [bn(conv(t, c, NAS_HEAD, 3, 1), NAS_HEAD)])
+              for s, (t, c) in taps.items()}
+    for s, kind, cols, out_name in NAS_OUTPUTS:
+        t = conv(trunks[s], NAS_HEAD, 2 * cols, 3, 1)
+        if kind == "cls":
+            t = op("Sigmoid", [t])
+        perm = op("Transpose", [t], perm=[0, 2, 3, 1])
+        ac = op("Squeeze", [op("Gather", [op("Shape", [perm]), "axis3"], axis=0)], axes=[0])
+        c1 = op("Unsqueeze", [op("Div", [ac, "anchors_c_scalar"])], axes=[0])
+        nodes.append(W.node("Reshape", [perm, op("Concat", ["neg_one", c1], axis=0)],
+                            [out_name]))
+    return W.model(W.graph(nodes, inits, [("input", [1, 3, size, size])],
+                           [(o[3], [None, None]) for o in NAS_OUTPUTS]))
+
+
+def _cli_quiet(argv) -> float:
+    """One in-process CLI run whose output is kept aside (shown only if it
+    fails); its wall s."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = cli_main.main(argv)
+    assert rc == 0, (argv, rc, out.getvalue()[-3000:])
+    return time.perf_counter() - t0
+
+
+def head_diff(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               for s in want for g, w in zip(got[s], want[s]))
+
+
+def paired(dets_a, dets_b, K, bar=BOX_BAR):
+    """[(frame, slot of a, slot of b, box max|d|)]: each valid top-K slot of
+    `a` paired with the valid top-K slot of `b` in its frame whose box
+    coordinates lie nearest (all within `bar` px), each slot of `b` used
+    once."""
+    pairs = []
+    for f in range(dets_a.valid.shape[0]):
+        ja = torch.nonzero(dets_a.valid[f, :K]).flatten().tolist()
+        jb = torch.nonzero(dets_b.valid[f, :K]).flatten().tolist()
+        if not ja or not jb:
+            continue
+        dist = (dets_a.boxes[f, ja].float()[:, None] - dets_b.boxes[f, jb].float()[None]
+                ).abs().amax(-1)
+        used = set()
+        for ia, j in enumerate(ja):
+            order = torch.argsort(dist[ia]).tolist()
+            ib = next((i for i in order if i not in used), None)
+            if ib is not None and float(dist[ia, ib]) <= bar:
+                used.add(ib)
+                pairs.append((f, j, jb[ib], float(dist[ia, ib])))
+    return pairs
+
+
+def hold_to_native(label, got, native, K, bar=BOX_BAR):
+    """One .onnx step against a native step on the same frames: valid
+    masks, boxes paired within `bar` px, features and gallery names on the
+    pairs (module docstring, phase 13). Returns the line's numbers."""
+    dets, feats, sims, idx = got
+    n_dets, n_feats, n_sims, n_idx = native
+    masks_equal = int((dets.valid[:, :K] == n_dets.valid[:, :K]).all(dim=1).sum())
+    pairs = paired(n_dets, dets, K, bar)
+    n_valid = int(n_dets.valid[:, :K].sum())
+    cos = [float((feats[f, j] * n_feats[f, jn]).sum()) for f, jn, j, _ in pairs]
+    sim_dev = max((float((sims[f, j] - n_sims[f, jn]).abs().max()) for f, jn, j, _ in pairs),
+                  default=0.0)
+    checked = equal = 0
+    for f, jn, j, _ in pairs:  # names (gallery rows) clear of near-ties, as names_outside_ties
+        s = n_sims[f, jn].cpu().numpy()
+        gaps = np.abs(np.diff(s)) > 2 * sim_dev
+        clear = np.concatenate([[True], gaps]) & np.concatenate([gaps, [False]])
+        for p in np.nonzero(clear)[0]:
+            checked += 1
+            equal += int(idx[f, j, p]) == int(n_idx[f, jn, p])
+    out = dict(masks_equal=masks_equal, paired=len(pairs), valid=n_valid,
+               box_max=max((p[3] for p in pairs), default=0.0), cos_min=min(cos, default=-1.0),
+               sim_dev=sim_dev,
+               same_slot=sum(p[1] == p[2] for p in pairs),
+               names_checked=checked, names_equal=equal)
+    log(f"  {label}: valid masks equal in {masks_equal}/{len(dets.valid)} "
+        f"frames; {len(pairs)}/{n_valid} native slots paired with a box within {bar} px "
+        f"(max|d| {out['box_max']:.4g}; {sum(p[1] == p[2] for p in pairs)} in the same slot); "
+        f"feature cos min {out['cos_min']:.6f} (bar "
+        f"{1 - realmodels.COSINE_TOL}); sims max|d| {sim_dev:.3g}; names equal {equal}/"
+        f"{checked} outside near-ties")
+    return out
+
+
+def phase_onnx(dev, frames, det_tree, rec_tree, native_models, native, bank, n_rows, K,
+               top_k, smi, cli_args=()):
+    """ONNX interop at buffalo_sc width (module docstring, phase 13).
+    cli_args: flags added to every CLI run (a rehearsal on the CPU passes
+    --cpu)."""
+    from facerecognizeonnx_tpu_torch import onnx_export
+    from facerecognizeonnx_tpu_torch.models.arcface import IResNet
+    from facerecognizeonnx_tpu_torch.onnx_import import OnnxRunner, proto
+    from facerecognizeonnx_tpu_torch.onnx_import.native_map import map_recognizer
+
+    t_phase = time.perf_counter()
+    cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
+    B = frames.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        det_path, rec_path = os.path.join(tmp, "det.onnx"), os.path.join(tmp, "r50.onnx")
+        # ---- (a) round trip: export, parse, load, map
+        t0 = time.perf_counter()
+        det_bytes = onnx_export.export_detector(bridge.params_from_numpy(det_tree, dev), det_path)
+        t1 = time.perf_counter()
+        rec_bytes = onnx_export.export_recognizer(bridge.params_from_numpy(rec_tree, dev), rec_path)
+        t2 = time.perf_counter()
+        graph = proto.load_model(rec_path)
+        t3 = time.perf_counter()
+        mapped = map_recognizer(graph, "iresnet50", device=dev)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        assert isinstance(mapped, IResNet), "the exported IResNet-50 did not map natively"
+        det_api, rec_api = FaceDetector(cfg, device=dev), FaceRecognizer(cfg, device=dev)
+        t5 = time.perf_counter()
+        assert det_api.load_model(det_path) and isinstance(det_api.params, OnnxRunner)
+        t6 = time.perf_counter()
+        assert rec_api.load_model(rec_path) and isinstance(rec_api.params, IResNet)
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        runner, rec_onnx = det_api.params, rec_api.params
+        # the native SCRFD on the same weights as the graph: unfolded (phase
+        # 5's is BN-folded, which moves bf16 roundings: module docstring)
+        det_unfolded = bridge.params_from_numpy(det_tree, dev)
+        with torch.no_grad():
+            x = (frames.flip(-1).float() - 127.5) / 128.0
+            t8 = time.perf_counter()
+            heads = runner(x, torch.bfloat16)
+            torch.cuda.synchronize()
+            t9 = time.perf_counter()
+            want = det_unfolded(x, torch.bfloat16)
+            folded = native_models[0](x, torch.bfloat16)
+        score_d = max(float((heads[s][0].float() - want[s][0]).abs().max()) for s in want)
+        reg_d = max(float((heads[s][i] - want[s][i]).abs().max()) for s in want for i in (1, 2))
+        fold_d = (max(float((folded[s][0] - want[s][0]).abs().max()) for s in want),
+                  max(float((folded[s][i] - want[s][i]).abs().max()) for s in want for i in (1, 2)))
+        assert heads[8][0].dtype == torch.bfloat16 and heads[8][1].dtype == torch.float32
+        log(f"(a) round trip at buffalo_sc width: export det {len(det_bytes) / 1e6:.2f} MB in "
+            f"{t1 - t0:.2f} s, r50 {len(rec_bytes) / 1e6:.1f} MB in {t2 - t1:.2f} s; parse r50 "
+            f"{t3 - t2:.2f} s; map_recognizer (module on the card + self-verify through the "
+            f"executor) {t4 - t3:.2f} s, verify cosine {mapped.verify_cosine:.7f}; "
+            f"FaceDetector.load_model(det.onnx) -> OnnxRunner {t6 - t5:.2f} s; "
+            f"FaceRecognizer.load_model(r50.onnx) -> IResNet (mapped, folded) {t7 - t6:.2f} s, "
+            f"verify cosine {rec_onnx.verify_cosine:.7f}; the runner's first B={B} call "
+            f"(uploads the weights) {t9 - t8:.2f} s; heads vs the native SCRFD on the same "
+            f"weights, unfolded, bf16: scores max|d| {score_d:.4g} (bar {SCORE_BAR}), bbox/kps "
+            f"{reg_d:.4g} (bar {REG_BAR}); phase 5's folded SCRFD vs unfolded: scores "
+            f"{fold_d[0]:.4g}, bbox/kps {fold_d[1]:.4g} | card: {smi}")
+        assert score_d <= SCORE_BAR and reg_d <= REG_BAR, (score_d, reg_d)
+
+        # ---- (b) the main path from .onnx
+        rec_exec = OnnxRunner(rec_path, kind="arcface", device=dev)
+        steps = {"native": native_models, "native, detector unfolded": (det_unfolded,
+                                                                        native_models[1]),
+                 "runner + mapped": (runner, rec_onnx), "runner + executor": (runner, rec_exec)}
+        results, counts, times = {}, {}, {}
+        with torch.no_grad():
+            for label, (dm, rm) in steps.items():
+                def step(dm=dm, rm=rm):
+                    return frames_to_matches(dm, rm, frames, bank, n_rows, cfg, K, top_k)
+                reset_counts()
+                out = step()
+                torch.cuda.synchronize()
+                counts[label] = read_counts()
+                assert counts[label]["warp_xm"] == counts[label]["warp_xm_pyramid"] == 1, \
+                    (label, counts[label])
+                check_features(out[1], out[0].valid[:, :K], n_rows, out[3])
+                results[label] = out
+                times[label] = (wall_ms(step), device_ops(step))
+        log(f"(b) frames_to_matches from .onnx (B={B}, K={K}, bf16, 640², gallery "
+            f"{n_rows} rows): launches per step {counts['runner + mapped']} (mapped), "
+            f"{counts['runner + executor']} (executor)")
+        base = results["native, detector unfolded"]
+        agree = {label: hold_to_native(f"{label} vs the native step, detector unfolded",
+                                       results[label], base, K)
+                 for label in ("runner + mapped", "runner + executor")}
+        for label, a in agree.items():
+            assert a["masks_equal"] == B and a["paired"] >= 0.75 * a["valid"], (label, a)
+            assert a["cos_min"] >= 1 - realmodels.COSINE_TOL, (label, a)
+            assert a["names_equal"] == a["names_checked"] > 0, (label, a)
+        hold_to_native("runner + mapped vs phase 5's step (detector folded; no bar)",
+                       results["runner + mapped"], native, K, bar=4.0)
+        # the recognizers alone on the native step's own crops
+        n_dets = native[0]
+        crops = align_faces_batch(frames, n_dets.kps[:, :K], n_dets.boxes[:, :K], cfg,
+                                  n_dets.valid[:, :K], True).reshape(B * K, 112, 112, 3)
+        with torch.no_grad():
+            f_nat = embed_crops(native_models[1], crops, cfg, normalized=True)
+            f_map = embed_crops(rec_onnx, crops, cfg, normalized=True)
+            f_exe = embed_crops(rec_exec, crops, cfg, normalized=True)
+        v = n_dets.valid[:, :K].reshape(-1)
+        same_crops_mapped = bool(torch.equal(f_map, f_nat))
+        exec_cos = float((f_exe * f_nat).sum(-1)[v].min())
+        assert same_crops_mapped and exec_cos >= 1 - realmodels.COSINE_TOL, exec_cos
+        log(f"  on the native step's crops: the mapped recognizer's features equal the "
+            f"native's bit for bit: {same_crops_mapped}; the executor's cos min "
+            f"{exec_cos:.6f}")
+        log("  step (median of 10) / device operations traced / launched: " + "; ".join(
+            f"{k} {t:.3f} ms / {o[0]} / {o[1]}" for k, (t, o) in times.items()) + f" | card: {smi}")
+
+        # ---- (c) the det_500m shape on the card
+        nas_path = os.path.join(tmp, "det_500m_shaped.onnx")
+        with open(nas_path, "wb") as f:
+            f.write(det500m_shaped(3, 640))
+        fast, ref = OnnxRunner(nas_path, device=dev), OnnxRunner(nas_path, fast=False, device=dev)
+        with torch.no_grad(), tf32_off():
+            x1 = x[:1]
+            exec_d = head_diff(fast(x1), ref(x1))
+            batched = fast(x)
+            per_frame = max(head_diff({s: tuple(t[b:b + 1] for t in batched[s]) for s in batched},
+                                      fast(x[b:b + 1])) for b in range(B))
+        rows = {s: tuple(batched[s][0].shape) for s in sorted(batched)}
+        assert exec_d <= EXEC_BAR and per_frame <= 1e-4, (exec_d, per_frame)
+        with torch.no_grad():
+            reset_counts()
+            nas_out = frames_to_matches(fast, rec_onnx, frames, bank, n_rows, cfg, K, top_k)
+            torch.cuda.synchronize()
+        nas_counts = read_counts()
+        assert nas_counts["warp_xm"] == nas_counts["warp_xm_pyramid"] == 1, nas_counts
+        check_features(nas_out[1], nas_out[0].valid[:, :K], n_rows, nas_out[3])
+        log(f"(c) det_500m-shaped graph at 640² (batch-folded 2-D outputs, glue chains, "
+            f"scrambled order): fast vs reference executor max|d| {exec_d:.3g} (bar {EXEC_BAR}, "
+            f"f32, TF32 off); B={B} call vs {B} B=1 calls, per frame max|d| {per_frame:.3g} "
+            f"(bar 1e-4), heads unfolded to {rows}; frames_to_matches with it: "
+            f"{int(nas_out[0].valid[:, :K].sum())}/{B * K} slots, launches {nas_counts}")
+
+        # ---- (d) the CLI in process
+        png = os.path.join(tmp, "frame0.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(np.ascontiguousarray(frames[0].flip(-1).cpu().numpy())))
+        det_npz = os.path.join(tmp, "det.npz")
+        checkpoint.save_params(det_npz, det_tree)
+        cli_modes = {}
+        out_rec, out_det = os.path.join(tmp, "cli_r50.onnx"), os.path.join(tmp, "cli_det.onnx")
+        cli_modes["export (seeded r50)"] = _cli_quiet(["export", out_rec, *cli_args])
+        cli_modes["export --detector"] = _cli_quiet(["export", out_det, "--detector",
+                                                     "--det-model", det_npz, *cli_args])
+        with open(out_rec, "rb") as f:
+            rec_same = f.read() == rec_bytes
+        with open(out_det, "rb") as f:
+            det_same = f.read() == det_bytes
+        assert rec_same and det_same, (rec_same, det_same)
+        written = []
+        real_imwrite = cli_main.imwrite
+        cli_main.imwrite = lambda path, image: written.append(image.shape) or True
+        try:
+            doc, cli_modes["detect (.onnx models)"] = _cli_json(
+                ["detect", png, "--det-model", det_path, "--rec-model", rec_path, *cli_args])
+        finally:
+            cli_main.imwrite = real_imwrite
+        detect_faces = doc["total_faces"]
+        assert detect_faces > 0 and written, doc
+        real = os.path.join(tmp, "real")
+        os.makedirs(real)
+        os.symlink(det_path, os.path.join(real, realmodels.DET_FILE))
+        os.symlink(rec_path, os.path.join(real, realmodels.REC_FILE))
+        saved = os.environ.get("FRT_REAL_MODELS_DIR")
+        os.environ["FRT_REAL_MODELS_DIR"] = real
+        try:
+            doc, cli_modes["doctor (real-model parity armed)"] = _cli_json(["doctor", *cli_args])
+        finally:
+            if saved is None:
+                del os.environ["FRT_REAL_MODELS_DIR"]
+            else:
+                os.environ["FRT_REAL_MODELS_DIR"] = saved
+        rmp = doc["real_model_parity"]
+        assert rmp["status"] == "ok" and rmp["recognizer"]["mapped_native"], rmp
+        log(f"(d) CLI in process: export bytes equal (a)'s files: r50 {rec_same}, det "
+            f"{det_same}; detect --det-model det.onnx --rec-model r50.onnx --json: "
+            f"{detect_faces} faces; doctor with FRT_REAL_MODELS_DIR: real-model parity "
+            f"{rmp['status']} (fast vs reference {rmp['detector']['fast_vs_ref_maxdiff']:.3g}, "
+            f"served vs executor cosine {rmp['recognizer']['exec_cosine']:.6f}, mapped "
+            f"{rmp['recognizer']['mapped_native']}); wall s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in cli_modes.items()))
+    log(f"phase {time.perf_counter() - t_phase:.1f} s | card: {smi}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1823,9 +2214,8 @@ def main() -> int:
     ).to(dev)
     det_tree = detection_bias(bridge.init_params_numpy("500m", seed=0), frames)
     det = scrfd.fold_inference_params(bridge.params_from_numpy(det_tree, dev))
-    rec = arcface.fold_inference_params(
-        bridge.params_from_numpy(bridge.init_params_numpy("iresnet50", seed=1), dev)
-    )
+    rec_tree = bridge.init_params_numpy("iresnet50", seed=1)
+    rec = arcface.fold_inference_params(bridge.params_from_numpy(rec_tree, dev))
     gen = torch.Generator(device="cpu").manual_seed(2)
     bank = torch.zeros((G_PAD, 512), dtype=torch.float32)
     bank[:N_ROWS] = torch.nn.functional.normalize(torch.randn(N_ROWS, 512, generator=gen), dim=-1)
@@ -1933,8 +2323,13 @@ def main() -> int:
     phase(12)
     phase_serving(dev, rng, *api)
 
-    # ---- 13. result lines
+    # ---- 13. ONNX interop at buffalo_sc width
     phase(13)
+    phase_onnx(dev, frames, det_tree, rec_tree, (det, rec), (dets, feats, sims, idx), bank,
+               N_ROWS, K, TOP_K, smi)
+
+    # ---- 14. result lines
+    phase(14)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",

@@ -17,8 +17,9 @@ match/, pipeline/) on torch tensors. Entry points:
 Each runs on the card unless the caller passes device="cpu". The TPU
 kernels of the JAX package are hand-written CUDA kernels for Hopper
 (csrc/*.cu, built with nvcc at first use). Weights come from `.npz`
-checkpoints of either package, from JAX param trees through
-`bridge.params_from_numpy`, or from `bridge.init_params_numpy`.
+checkpoints of either package, from `.onnx` files (`onnx_import`), from
+JAX param trees through `bridge.params_from_numpy`, or from
+`bridge.init_params_numpy`; `onnx_export` writes a model as `.onnx`.
 
 Importing this package never imports jax.
 """

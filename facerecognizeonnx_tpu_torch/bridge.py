@@ -8,9 +8,13 @@ ViT (a tree with "pos_embed"). Both unfolded trees and
 `fold_inference_params` trees (post-conv BN keys absent, conv biases
 present) are accepted. Layout conversions:
 
-  conv   HWIO → OIHW  (w.transpose(3, 2, 0, 1)); depthwise is HWIO, I=1
+  conv   HWIO → OIHW  (w.transpose(3, 2, 0, 1)); depthwise is HWIO, I=1;
+         a conv dict may instead hold "w_oihw", taken as it is
   FC     (din, dout) → (dout, din)
   BN dicts, LayerNorms and PReLU alphas are copied as they are.
+
+`tree_from_module(model)` is the inverse, module → numpy tree (the
+ONNX exporter's input).
 
 `init_params_numpy(arch, seed)` draws a tree of the same shapes as the
 JAX initializers (He-normal convs and FC, identity BN and LayerNorm,
@@ -72,7 +76,10 @@ def _t(x) -> torch.Tensor:
 
 
 def _conv(p, stride=1, padding=0, groups=1) -> Conv:
-    w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)  # HWIO → OIHW
+    if "w_oihw" in p:  # as an ONNX file holds it (onnx_import/native_map.py)
+        w = p["w_oihw"]
+    else:
+        w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)  # HWIO → OIHW
     b = _t(p["b"]) if "b" in p else None
     return Conv(_t(w), b, stride, padding, groups)
 
@@ -205,6 +212,111 @@ def params_from_numpy(tree: Dict, device="cuda") -> torch.nn.Module:
             "param tree matches no known model (SCRFD, IResNet, MobileFaceNet or ViT)"
         )
     return model.to(dev)
+
+# ---------------------------------------------------------------- module → tree
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _conv_tree(conv: Conv) -> Dict:
+    tree = {"w": _n(conv.weight).transpose(2, 3, 1, 0)}  # OIHW → HWIO
+    if conv.bias is not None:
+        tree["b"] = _n(conv.bias)
+    return tree
+
+
+def _bn_tree(bn: BatchNorm) -> Dict:
+    return {k: _n(getattr(bn, k)) for k in ("scale", "bias", "mean", "var")}
+
+
+def _linear_tree(lin: Linear) -> Dict:
+    tree = {"w": _n(lin.weight).T}  # (dout, din) → (din, dout)
+    if lin.bias is not None:
+        tree["b"] = _n(lin.bias)
+    return tree
+
+
+def _unit_tree(unit: ConvUnit, conv="conv", bn="bn", act="prelu") -> Dict:
+    tree = {conv: _conv_tree(unit.conv)}
+    if unit.bn is not None:
+        tree[bn] = _bn_tree(unit.bn)
+    if unit.act is not None:
+        tree[act] = {"alpha": _n(unit.act.alpha)}
+    return tree
+
+
+def _ln_tree(ln: LayerNorm) -> Dict:
+    return {"scale": _n(ln.scale), "bias": _n(ln.bias)}
+
+
+def tree_from_module(model: torch.nn.Module) -> Dict:
+    """The inverse of `params_from_numpy`: the JAX-layout numpy tree of a
+    SCRFD / IResNet / MobileFaceNet / ViT module (unfolded or folded:
+    absent BNs are absent keys)."""
+    if isinstance(model, SCRFD):
+        tree: Dict = {"stem": _unit_tree(model.stem)}
+        tree["backbone"] = [
+            {**_unit_tree(b.dw, "dw", "dw_bn", "dw_prelu"),
+             **_unit_tree(b.pw, "pw", "pw_bn", "pw_prelu")}
+            if isinstance(b, DWSepBlock) else _unit_tree(b)
+            for b in model.backbone
+        ]
+        tree["neck"] = {k: _conv_tree(c) for k, c in model.neck.items()}
+        tree["head"] = {
+            "convs": [_unit_tree(u) for u in model.head_convs],
+            "cls": _conv_tree(model.cls),
+            "bbox": _conv_tree(model.bbox),
+            "kps": _conv_tree(model.kps),
+        }
+        tree["scales"] = {f"s{s}": np.float32(v) for s, v in model.scales.items()}
+        return tree
+    if isinstance(model, IResNet):
+        stem = _unit_tree(model.stem, "conv1", "bn1", "prelu1")
+        tree = {**stem}
+        for s, stage in enumerate(model.stages, start=1):
+            blocks = []
+            for blk in stage:
+                p = {"bn1": _bn_tree(blk.bn1),
+                     **_unit_tree(blk.unit1, "conv1", "bn2", "prelu"),
+                     **_unit_tree(blk.unit2, "conv2", "bn3")}
+                if blk.down is not None:
+                    p.update(_unit_tree(blk.down, "down_conv", "down_bn"))
+                blocks.append(p)
+            tree[f"layer{s}"] = blocks
+        tree["bn2"] = _bn_tree(model.bn2)
+        tree["fc"] = _linear_tree(model.fc)
+    elif isinstance(model, MobileFaceNet):
+        tree = {"stem": _unit_tree(model.stem), "stem_dw": _unit_tree(model.stem_dw)}
+        tree["body"] = [
+            {**_unit_tree(b.pw1, "pw1", "pw1_bn", "pw1_prelu"),
+             **_unit_tree(b.dw, "dw", "dw_bn", "dw_prelu"),
+             **_unit_tree(b.pw2, "pw2", "pw2_bn")}
+            for b in model.body
+        ]
+        tree["conv_sep"] = _unit_tree(model.conv_sep)
+        tree["gdc_dw"] = _unit_tree(model.gdc)
+        tree["fc"] = _linear_tree(model.fc)
+    elif isinstance(model, ViT):
+        tree = {
+            "patch": _linear_tree(model.patch),
+            "pos_embed": _n(model.pos_embed),
+            "blocks": [
+                {"ln1": _ln_tree(b.ln1), "qkv": _linear_tree(b.qkv),
+                 "proj": _linear_tree(b.proj), "ln2": _ln_tree(b.ln2),
+                 "mlp1": _linear_tree(b.mlp1), "mlp2": _linear_tree(b.mlp2)}
+                for b in model.blocks
+            ],
+            "ln_f": _ln_tree(model.ln_f),
+            "fc": _linear_tree(model.fc),
+        }
+    else:
+        raise ModelLoadError(f"not a model of the port: {type(model).__name__}")
+    if model.features_bn is not None:
+        tree["features_bn"] = _bn_tree(model.features_bn)
+    return tree
+
 
 # ---------------------------------------------------------------- numpy init
 

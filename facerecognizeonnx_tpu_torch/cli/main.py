@@ -11,16 +11,19 @@ Extras:
   enroll <dir|images...> --gallery g.npz     — batched gallery enrollment
   identify <image...> --gallery g.npz        — 1:N search
   serve --port 8080                          — HTTP identify/enroll service
+  export out.onnx [--detector]               — the recognizer (or detector)
+                                               as an ONNX graph
   doctor                                     — environment diagnosis
   --json                                     — one JSON document on stdout,
                                                human output on stderr
 
-Every mode runs on the CUDA card unless `--cpu` is given; without a card
-and without `--cpu` the CLI prints why and returns non-zero. Not ported
+Weights: `.npz` or `.onnx` (--det-model / --rec-model, or a --pack whose
+files are in --model-dir), seeded random weights otherwise. Every mode
+runs on the CUDA card unless `--cpu` is given; without a card and
+without `--cpu` the CLI prints why and returns non-zero. Not ported
 yet, and raising NotImplementedError that names its ROADMAP.md item: the
-modes bench, export, train and eval, the options --experts, --sharded,
---dp and --aot, and `.onnx` weights (--det-model / --rec-model, or a
---pack whose files are on disk).
+modes bench, train and eval, `export` to a `.frtz` bundle, and the
+options --experts, --sharded, --dp and --aot.
 
 Headless by default: annotated images are written next to the input
 (`<name>_out.jpg`, which needs cv2 or PIL to encode); `--show` opens
@@ -47,7 +50,6 @@ from facerecognizeonnx_tpu_torch.utils.draw import draw_face_info
 
 UNPORTED_MODES = {
     "bench": "the bench harness is not ported (ROADMAP.md, the note at Queue A item 8)",
-    "export": "ONNX and AOT export are not ported yet (ROADMAP.md Queue A items 15 and 18b)",
     "train": "training is not ported yet (ROADMAP.md Queue A item 17)",
     "eval": "evaluation is not ported yet (ROADMAP.md Queue A item 17, with item 16's "
             "sharded_batch_embed)",
@@ -58,7 +60,7 @@ UNPORTED_OPTIONS = {
     "dp": "data-parallel serving is not ported yet (ROADMAP.md Queue A item 16)",
     "aot": "AOT bundles are not ported yet (ROADMAP.md Queue A item 18b)",
 }
-REAL_MODEL_FILES = ("det_500m.onnx", "w600k_r50.onnx")
+UNPORTED_FRTZ = "AOT (.frtz) export is not ported yet (ROADMAP.md Queue A item 18b)"
 
 
 def _load_models(args):
@@ -503,16 +505,38 @@ def mode_serve(args):
             print(f"gallery 已保存 → {args.gallery} ({len(bank)} 条)", flush=True)
 
 
-def _find_real_models(model_dir):
-    """The directory holding both real buffalo_sc files, searched in the
-    FRT_REAL_MODELS_DIR env var, `model_dir`, ./models and models/ at the
-    repository root; None when no directory holds both."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    for d in (os.environ.get("FRT_REAL_MODELS_DIR"), model_dir,
-              os.path.join(os.getcwd(), "models"), os.path.join(root, "models")):
-        if d and all(os.path.isfile(os.path.join(d, f)) for f in REAL_MODEL_FILES):
-            return d
-    return None
+def mode_export(args):
+    """The recognizer (or with --detector the detector) as an ONNX graph
+    at the `.onnx` path given (onnx_export/), loadable by ONNX Runtime.
+    Weights from --rec-model / --det-model (`.npz`), else seeded; the
+    module is exported UNFOLDED: the graph carries explicit
+    BatchNormalization nodes, as the published w600k files do. A `.frtz`
+    path raises (ROADMAP.md Queue A item 18b)."""
+    from facerecognizeonnx_tpu_torch import bridge
+    from facerecognizeonnx_tpu_torch.onnx_export import export_detector, export_recognizer
+    from facerecognizeonnx_tpu_torch.pipeline.api import _load_onnx, _load_tree, _to_module
+
+    cfg = _cfg(args)
+    out = args.images[0]
+    if out.endswith(".frtz"):
+        raise NotImplementedError(f"export: {UNPORTED_FRTZ}")
+
+    def load(path, init_fn):
+        if path is not None and path.endswith(".onnx"):
+            return _load_onnx(path, args.device)  # a runner, which export rejects
+        return _to_module(_load_tree(path, init_fn), args.device)
+
+    if args.detector:
+        model = load(args.det_model,
+                     lambda: bridge.init_params_numpy(cfg.scrfd_variant, seed=cfg.seed))
+        data = export_detector(model, out, input_size=cfg.det_input_size)
+    else:
+        model = load(args.rec_model, lambda: bridge.init_params_numpy(
+            cfg.rec_arch, seed=cfg.seed + 1, input_size=cfg.rec_input_size,
+            feature_dim=cfg.feature_dim,
+        ))
+        data = export_recognizer(model, out, input_size=cfg.rec_input_size)
+    print(f"已导出 ONNX 模型: {out} ({len(data) / 1e6:.1f} MB)")
 
 
 def mode_doctor(args):
@@ -575,17 +599,35 @@ def mode_doctor(args):
     report["packs"] = packs
     report["model_dir"] = args.model_dir
     print("模型文件缺失时使用确定性初始化权重 (语义/性能路径不变)")
-    found = _find_real_models(args.model_dir)
-    if found is not None:
-        raise NotImplementedError(
-            f"real-model parity on {found} needs .onnx weights, which are not ported yet "
-            "(ROADMAP.md Queue A item 15)"
-        )
-    report["real_model_parity"] = {"status": "skipped", "reason": "files absent"}
-    print(
-        "real-model parity: SKIPPED (files absent — set FRT_REAL_MODELS_DIR or place "
-        f"{' + '.join(REAL_MODEL_FILES)} in the model dir)"
+    # the real buffalo_sc files, wherever findable, arm the parity proof
+    from facerecognizeonnx_tpu_torch.utils.realmodels import (
+        DET_FILE,
+        REC_FILE,
+        find_real_models,
+        run_real_model_parity,
     )
+
+    found = find_real_models(args.model_dir)
+    if found is None:
+        report["real_model_parity"] = {"status": "skipped", "reason": "files absent"}
+        print(
+            "real-model parity: SKIPPED (files absent — set FRT_REAL_MODELS_DIR or place "
+            f"{DET_FILE} + {REC_FILE} in the model dir)"
+        )
+    else:
+        try:
+            parity = run_real_model_parity(found["det"], found["rec"], cfg=_cfg(args),
+                                           device=dev)
+            report["real_model_parity"] = {"status": "ok", "dir": found["dir"], **parity}
+            print(
+                f"real-model parity: OK ({found['dir']} — exec cosine "
+                f"{parity['recognizer']['exec_cosine']:.6f}, native-mapped="
+                f"{parity['recognizer']['mapped_native']})"
+            )
+        except Exception as e:  # noqa: BLE001 — a failing proof IS the diagnosis
+            report["real_model_parity"] = {"status": "FAIL", "dir": found["dir"],
+                                           "error": str(e)}
+            print(f"real-model parity: FAIL — {e}")
     if os.path.exists(args.gallery):
         from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 
@@ -651,8 +693,8 @@ def main(argv=None):
         "stderr (detect/compare/simple/webcam/enroll/identify/doctor)",
     )
     parser.add_argument("images", nargs="*")
-    parser.add_argument("--det-model", default=None, help=".npz detector weights")
-    parser.add_argument("--rec-model", default=None, help=".npz recognizer weights")
+    parser.add_argument("--det-model", default=None, help=".npz or .onnx detector weights")
+    parser.add_argument("--rec-model", default=None, help=".npz or .onnx recognizer weights")
     parser.add_argument("--gallery", default="gallery.npz")
     parser.add_argument(
         "--rec-arch",
@@ -672,7 +714,7 @@ def main(argv=None):
         default=None,
         choices=["buffalo_sc", "buffalo_s", "buffalo_m", "buffalo_l"],
         help="named buffalo pack: sets --det-variant/--rec-arch; seeded weights "
-        "unless the pack's .onnx files are in --model-dir (not ported yet)",
+        "unless the pack's .onnx files are in --model-dir",
     )
     parser.add_argument("--model-dir", default="models",
                         help="pack directory holding det_*.onnx / w600k_*.onnx")
@@ -704,7 +746,7 @@ def main(argv=None):
         "int8 activation scales (default: synthetic noise)",
     )
     parser.add_argument("--detector", action="store_true",
-                        help="export/train: the detector (not ported yet)")
+                        help="export: the detector (train: not ported yet)")
     parser.add_argument(
         "--det-size", type=int, default=None,
         help="detector input size override (default 640, the reference's)",
@@ -790,10 +832,11 @@ def _run(args):
         "enroll": mode_enroll,
         "identify": mode_identify,
         "serve": mode_serve,
+        "export": mode_export,
         "doctor": mode_doctor,
     }
     need = {"detect": 1, "compare": 2, "simple": 2, "webcam": 0, "enroll": 1,
-            "identify": 1, "serve": 0, "doctor": 0}
+            "identify": 1, "serve": 0, "export": 1, "doctor": 0}
     if len(args.images) < need[args.mode]:
         print("无效的命令或参数")
         return -1

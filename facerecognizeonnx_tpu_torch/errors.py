@@ -25,3 +25,7 @@ class GalleryError(FrtError, ValueError):
 class NativeRuntimeUnavailable(FrtError, RuntimeError):
     """The native host runtime (runtime/cc/frt_runtime.cc) could not be
     built or loaded."""
+
+
+class UnsupportedOnnxOp(FrtError, NotImplementedError):
+    """The graph executor hit an op outside its registry."""

@@ -2,7 +2,8 @@
 NCHW inside): `scrfd` (the det_500m / 2.5g / 10g / tpu / 500m_s2d
 family), and the recognizers `arcface` (IResNet 18/34/50/100),
 `mobilefacenet` (mbf, mbf_large) and `vit` (vit_t/s/b); `quant` (w8a8)
-and `packs` (the buffalo bundles).
+and `packs` (the buffalo bundles). `recognizer_apply` also runs an ONNX
+recognizer graph (`onnx_import.OnnxRunner`).
 """
 
 from __future__ import annotations
@@ -33,8 +34,17 @@ def recognizer_module_for(model: torch.nn.Module):
 
 
 def recognizer_apply(model, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """A recognizer's forward pass: (B, S, S, 3) → (B, 512) float32."""
-    recognizer_module_for(model)
+    """A recognizer's forward pass: (B, S, S, 3) → (B, 512) float32. The
+    model is a native recognizer or an `onnx_import.OnnxRunner` of kind
+    "arcface" (a recognizer .onnx that no native mapper fits)."""
+    # imported here: config imports this package while it is being built
+    from facerecognizeonnx_tpu_torch.onnx_import import OnnxRunner
+
+    if isinstance(model, OnnxRunner):
+        if model.kind != "arcface":
+            raise TypeError(f"an ONNX runner of kind {model.kind!r} is not a recognizer")
+    else:
+        recognizer_module_for(model)
     return model(x, compute_dtype)
 
 

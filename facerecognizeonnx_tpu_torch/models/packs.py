@@ -7,10 +7,10 @@ published bundle ships, so
     detector, recognizer = load_pack("buffalo_l", model_dir="models/")
 
 returns a matched (FaceDetector, FaceRecognizer) on the card. Where the
-pack's files are absent the models take seeded random weights, as
-`load_model(None)` does; where they are present, loading them raises the
-port's NotImplementedError for `.onnx` weights (ROADMAP.md Queue A item
-15) rather than falling back to seeded weights.
+pack's files are in `model_dir` they are loaded (`load_model` of the
+`.onnx` files: the detector through the graph executor, the recognizer
+mapped onto its native module); where they are absent the models take
+seeded random weights, as `load_model(None)` does.
 """
 
 from __future__ import annotations

@@ -25,12 +25,15 @@ any arch of `cfg.rec_arch` (IResNet, MobileFaceNet, ViT);
 `FaceRecognizer.quantize` makes it w8a8 (`models/quant.py`), as does
 `cfg.recognizer_quant="w8a8"` at load.
 
-Not ported yet, and raising NotImplementedError: `.onnx` weights
-(ROADMAP.md Queue A item 15).
+`.onnx` weights load as in the JAX package: a detector file always runs
+through the graph executor (`onnx_import.OnnxRunner`); a recognizer file
+is first mapped onto the native module (`onnx_import.native_map`,
+self-verified), and runs through the executor where no mapping fits.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -44,25 +47,41 @@ from facerecognizeonnx_tpu_torch.embed.pipeline import embed_program, embed_simp
 from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.io.imageio import imread
 from facerecognizeonnx_tpu_torch.models import quant, recognizer_module_for, scrfd
+from facerecognizeonnx_tpu_torch.onnx_import import OnnxRunner
 from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.runtime import native
 from facerecognizeonnx_tpu_torch.types import Detections, FaceBox, face_boxes_to_arrays
 from facerecognizeonnx_tpu_torch.utils import checkpoint
-
-UNPORTED_ONNX = "ONNX weights are not ported yet (ROADMAP.md Queue A item 15)"
-
 
 def _load_tree(path: Optional[str], init_fn):
     """Param tree from `.npz`, or init_fn() when path is None. Raises
     ModelLoadError on a missing or corrupt file."""
     if path is None:
         return init_fn()
-    if path.endswith(".onnx"):
-        raise NotImplementedError(UNPORTED_ONNX)
     try:
         return checkpoint.load_params(path)
     except (OSError, ValueError) as e:
         raise ModelLoadError(f"cannot load weights {path!r}: {e}") from e
+
+
+def _load_onnx(path: str, device, native_mapper=None) -> torch.nn.Module:
+    """An .onnx file → the native module `native_mapper(path)` maps it
+    onto, else an OnnxRunner. Raises ModelLoadError on a missing,
+    corrupt or unsupported file."""
+    from facerecognizeonnx_tpu_torch.onnx_import import importer, proto
+
+    try:
+        graph = proto.load_model(path)
+        if native_mapper is not None:
+            mapped = native_mapper(graph)
+            if mapped is not None:
+                print("ONNX weights mapped onto the native model")
+                return mapped
+        return importer.load_onnx_params(graph, device=device)
+    except (OSError, ValueError, IndexError, struct.error, NotImplementedError) as e:
+        # a truncated protobuf runs its reader off the end (IndexError,
+        # struct.error), where the JAX package lets them through
+        raise ModelLoadError(f"cannot load ONNX model {path!r}: {e}") from e
 
 
 def _to_module(tree, device) -> torch.nn.Module:
@@ -90,21 +109,24 @@ class FaceDetector:
         self.params = None  # the SCRFD module, once loaded
 
     def load_model(self, model_path: Optional[str] = None) -> bool:
-        """Weights from `.npz` (either package's checkpoint format), or
-        with model_path=None a random init from `cfg.seed`
-        (`bridge.init_params_numpy`, whose values differ from the JAX
-        package's `jax.random` init). BatchNorms are folded. False on a
-        missing or corrupt file."""
+        """Weights from `.npz` (either package's checkpoint format) or
+        `.onnx` (run by the graph executor), or with model_path=None a
+        random init from `cfg.seed` (`bridge.init_params_numpy`, whose
+        values differ from the JAX package's `jax.random` init). A native
+        model's BatchNorms are folded. False on a missing or corrupt file."""
         try:
-            tree = _load_tree(
-                model_path,
-                lambda: bridge.init_params_numpy(self.cfg.scrfd_variant, seed=self.cfg.seed),
-            )
-            model = _to_module(tree, self.device)
+            if model_path is not None and model_path.endswith(".onnx"):
+                model = _load_onnx(model_path, self.device)
+            else:
+                tree = _load_tree(
+                    model_path,
+                    lambda: bridge.init_params_numpy(self.cfg.scrfd_variant, seed=self.cfg.seed),
+                )
+                model = _to_module(tree, self.device)
         except ModelLoadError as e:
             print(f"Error loading model: {e}")
             return False
-        if model.stem.bn is not None:
+        if isinstance(model, scrfd.SCRFD) and model.stem.bn is not None:
             model = scrfd.fold_inference_params(model)
         self.params = model
         print("Face detector model loaded successfully!")
@@ -252,26 +274,35 @@ class FaceRecognizer:
         self.params = None  # the recognizer module, once loaded
 
     def load_model(self, model_path: Optional[str] = None) -> bool:
-        """Weights from `.npz` (either package's checkpoint format), or
-        with model_path=None a random init from `cfg.seed + 1`
-        (`bridge.init_params_numpy`, whose values differ from the JAX
-        package's `jax.random` init). Post-conv BNs are folded (each
-        family's `fold_inference_params`). False on a missing or corrupt
-        file."""
+        """Weights from `.npz` (either package's checkpoint format) or
+        `.onnx` (mapped onto the native module when a mapper of
+        `onnx_import.native_map` fits it, else run by the graph
+        executor), or with model_path=None a random init from
+        `cfg.seed + 1` (`bridge.init_params_numpy`, whose values differ
+        from the JAX package's `jax.random` init). A native model's
+        post-conv BNs are folded (each family's `fold_inference_params`).
+        False on a missing or corrupt file."""
+        from facerecognizeonnx_tpu_torch.onnx_import.native_map import map_recognizer
+
+        cfg = self.cfg
         try:
-            tree = _load_tree(
-                model_path,
-                lambda: bridge.init_params_numpy(
-                    self.cfg.rec_arch, seed=self.cfg.seed + 1,
-                    input_size=self.cfg.rec_input_size,
-                    feature_dim=self.cfg.feature_dim,
-                ),
-            )
-            model = _to_module(tree, self.device)
+            if model_path is not None and model_path.endswith(".onnx"):
+                model = _load_onnx(model_path, self.device, lambda graph: map_recognizer(
+                    graph, cfg.rec_arch, input_size=cfg.rec_input_size, device=self.device,
+                ))
+            else:
+                tree = _load_tree(
+                    model_path,
+                    lambda: bridge.init_params_numpy(
+                        cfg.rec_arch, seed=cfg.seed + 1, input_size=cfg.rec_input_size,
+                        feature_dim=cfg.feature_dim,
+                    ),
+                )
+                model = _to_module(tree, self.device)
         except ModelLoadError as e:
             print(f"Error loading model: {e}")
             return False
-        if model.features_bn is not None:
+        if not isinstance(model, OnnxRunner) and model.features_bn is not None:
             model = recognizer_module_for(model).fold_inference_params(model)
         self.params = model
         print("Face recognizer model loaded successfully!")
@@ -289,9 +320,12 @@ class FaceRecognizer:
         activation calibration; by default 64 crops of noise drawn from
         `cfg.seed` (the JAX package's batch). min_channels quantizes only
         the convs at least that wide. False when no model is loaded or it
-        is already quantized."""
+        is already quantized, or an ONNX graph runs it."""
         if self.params is None:
             print("Model not loaded!")
+            return False
+        if isinstance(self.params, OnnxRunner):
+            print("Quantization needs native model params (not an ONNX graph)")
             return False
         if quant.is_quantized(self.params):
             print("Recognizer is already quantized")

@@ -57,8 +57,8 @@ class FaceApp:
         device="cuda",
     ) -> "FaceApp":
         """Build from a named buffalo pack (models/packs.py) on `device`:
-        seeded weights where the pack's files are absent (loading its
-        `.onnx` files raises, ROADMAP.md Queue A item 15)."""
+        the pack's `.onnx` files where they are in model_dir, seeded
+        weights where they are absent."""
         from facerecognizeonnx_tpu_torch.models.packs import load_pack
 
         detector, recognizer = load_pack(name, model_dir=model_dir, quant=quant, device=device)

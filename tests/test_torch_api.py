@@ -139,8 +139,7 @@ def test_load_model_contract(loaded, tmp_path):
     corrupt = tmp_path / "corrupt.npz"
     corrupt.write_bytes(b"not a checkpoint")
     assert rec.load_model(str(corrupt)) is False and rec.params is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.load_model("det_500m.onnx")
+    assert det.load_model(str(tmp_path / "det_500m.onnx")) is False and det.params is None
     # init from seeds (numpy, not jax.random): a working, folded model
     assert det.load_model() and rec.load_model()
     assert det.params.stem.bn is None and rec.params.features_bn is None

@@ -173,27 +173,33 @@ def test_without_cuda_and_without_cpu(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["bench"], "item 8"), (["export", "x.onnx"], "items 15 and 18b"), (["train", "d"], "item 17"),
+    (["bench"], "item 8"), (["export", "x.frtz"], "item 18b"), (["train", "d"], "item 17"),
     (["eval", "d"], "item 17"), (["enroll", "x.png", "--experts", "a,b"], "item 16"),
     (["identify", "x.png", "--sharded"], "item 16"), (["serve", "--dp", "2"], "item 16"),
     (["serve", "--aot", "x.frtz"], "item 18b"),
-    (["simple", "a.png", "b.png", "--rec-model", "w600k_r50.onnx"], "item 15"),
 ])
 def test_unported_modes_and_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         cli.main(argv + ["--cpu"])
 
 
-def test_onnx_pack_files_and_real_models_raise(files, tmp_path, monkeypatch):
+def test_onnx_pack_files_and_real_models_raise(files, tmp_path, monkeypatch, capsys):
+    """Empty .onnx files on disk are loaded, not passed over: the pack's
+    detector fails to load (the CLI exits -1), and doctor's real-model
+    parity runs and reports the failure (tests/test_torch_onnx_api.py
+    loads real exports)."""
     _, paths, _ = files
     for name in ("det_500m.onnx", "w600k_r50.onnx"):
         (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(SystemExit) as exc:
         cli.main(["detect", paths[0], "--pack", "buffalo_sc", "--model-dir", str(tmp_path),
                   "--cpu"])
+    assert exc.value.code == -1
+    assert "Error loading model: cannot load ONNX model" in capsys.readouterr().out
     monkeypatch.setenv("FRT_REAL_MODELS_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["doctor", "--cpu"])
+    assert cli.main(["doctor", "--json", "--cpu"]) == 0
+    rmp = json.loads(capsys.readouterr().out)["real_model_parity"]
+    assert rmp["status"] == "FAIL" and rmp["dir"] == str(tmp_path)
 
 
 def test_serve_sigterm_persists_gallery(files, tmp_path):

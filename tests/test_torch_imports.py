@@ -51,6 +51,15 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.pipeline.client",
     "facerecognizeonnx_tpu_torch.pipeline.server",
     "facerecognizeonnx_tpu_torch.utils.draw",
+    "facerecognizeonnx_tpu_torch.utils.realmodels",
+    "facerecognizeonnx_tpu_torch.onnx_import",
+    "facerecognizeonnx_tpu_torch.onnx_import.proto",
+    "facerecognizeonnx_tpu_torch.onnx_import.executor",
+    "facerecognizeonnx_tpu_torch.onnx_import.importer",
+    "facerecognizeonnx_tpu_torch.onnx_import.native_map",
+    "facerecognizeonnx_tpu_torch.onnx_export",
+    "facerecognizeonnx_tpu_torch.onnx_export.writer",
+    "facerecognizeonnx_tpu_torch.onnx_export.emit",
     "facerecognizeonnx_tpu_torch.version",
     "facerecognizeonnx_tpu_torch.cli",
     "facerecognizeonnx_tpu_torch.cli.main",

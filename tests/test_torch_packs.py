@@ -26,6 +26,7 @@ from facerecognizeonnx_tpu.pipeline.fused import frames_to_matches as j_frames_t
 from facerecognizeonnx_tpu.utils import checkpoint as j_checkpoint
 from facerecognizeonnx_tpu_torch import FaceRecognizer, bridge
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.models import packs, quant
 from facerecognizeonnx_tpu_torch.models.layers import Conv
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_matches
@@ -58,10 +59,11 @@ def test_registry_and_resolve_match_jax(tmp_path):
 
 
 def test_load_pack_with_onnx_files_raises(tmp_path):
-    """Present .onnx files are never replaced by seeded weights: loading
-    them raises the port's ONNX NotImplementedError."""
+    """Present .onnx files are never replaced by seeded weights: a corrupt
+    one fails its load_model and load_pack raises (tests/
+    test_torch_onnx_api.py loads real exports)."""
     (tmp_path / "det_2.5g.onnx").write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ModelLoadError, match="buffalo_m: failed to load"):
         packs.load_pack("buffalo_m", str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="quant"):
         packs.load_pack("buffalo_s", quant="w4", device="cpu")
