@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; there is no CPU path):
      TF32 off for matmuls, and for convolutions inside the float32 checks
      (`tf32_off`; the bf16 path's convolutions run in float32 on bf16
      operands, which TF32 holds exactly)
-  2. build every csrc/*.cu with nvcc for sm_90a, one nvcc per source, and
-     the native host runtime with g++, all started together
+  2. build every csrc/*.cu (warp_xm, warp_ym, gallery_topk, nms_greedy)
+     with nvcc for sm_90a, one nvcc per source, and the native host
+     runtime with g++, all started together
   3. the x-major warp (csrc/warp_xm.cu: pyramid launch, resample launch
      that computes its own face table) vs its plain-torch versions on the
      card, bit for bit: the pyramid at 640x640, 251x317 and 8x8; the
@@ -29,7 +30,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      the same detections through the plain warp (crops held against the
      kernel's at these shapes, features by cosine); frames/s and faces/s
      (median of 10 after warm-up), a per-stage time split and the
-     device operations of one step and of its align stage (profiler)
+     device operations of one step and of its align stage (profiler); the
+     step launches the NMS kernel (csrc/nms_greedy.cu), counted
   6. the y-major warp (csrc/warp_ym.cu: one resample launch that computes
      its own face table, after phase 3's pyramid launch) vs its plain
      versions on the card, bit for bit: the table the kernel writes vs
@@ -71,8 +73,10 @@ Phases (any failure exits non-zero; there is no CPU path):
      True)` in both modes on 64 concurrent 720x1280 requests (native
      letterbox, not the identity) against the dense service's names;
      `VideoPipeline` over 16 of those frames, dense and adaptive, with
-     equal labels; and the histogram of NMS fixpoint iterations over the
-     whole drive (`ops/nms.py` checks the host once per ITERS_PER_CHECK)
+     equal labels; and the histogram of NMS fixpoint iterations of the
+     plain version (`nms_greedy_reference`) run on the candidates of phase
+     5's frames and the camera frames, outside any timed window (the path
+     itself runs the kernel, which has no such count)
  11. the model families at full width, each through frames_to_matches on
      phase 5's frames (B=8, 640x640, K=8) and gallery, bf16, seeded
      weights, the detections recipe (`bias_detector`): the buffalo_sc
@@ -153,7 +157,33 @@ Phases (any failure exits non-zero; there is no CPU path):
      .npz, both byte-equal to (a)'s files, `detect` with both .onnx
      models, and `doctor` with FRT_REAL_MODELS_DIR pointing at (a)'s files
      under the real names: real-model parity armed and ok
- 14. one JSON line of the kernels, the nvidia-smi line, and last
+ 14. the NMS kernel (csrc/nms_greedy.cu, `nms.nms_greedy`) vs its plain
+     version (`nms_greedy_reference`, the fixpoint loop), keep masks bit
+     for bit: phase 5's candidates (B=8, K=512, int_rects), the 12-box
+     suppression chain of tests/test_torch_detect.py, and `nms_edge_boxes`
+     sweeps with overlaps at IoU 0.4 exactly or within a few float32 ulps
+     (int_rects True and False, K=512, B=1 and B=16, valid masks with
+     holes); kernel and plain times at phase 5's candidates beside the
+     bound
+ 15. the fused step as AOT bundles (pipeline/aot.py): (a) `save_bundle`
+     of phase 5's models (bf16, B=8, K=8, 640²), `load_bundle` onto the
+     card, the step captured as one CUDA graph at the first call and
+     replayed: valid masks equal the eager `frames_to_features`, boxes
+     within 1e-3, features' cosine and max|d| printed; the witness: each
+     kernel's device-side launch counter (`nms.device_launches`,
+     `warp_cuda.device_launches`) moves by exactly one per replay over
+     N_REPLAYS replays, while the Python counters stay at 0; eager step
+     and replay in turns, median of 10 with min-max, and the device
+     operations of each; (b) the same in float32 with TF32 off: features
+     within 1e-5, and after `swap_params` to another seeded IResNet-50
+     within 3e-5 of the eager step on it; (c) the CLI's `export out.frtz
+     --cpu` (a program traced from CPU tensors), loaded and replayed on the
+     card against the eager step on its leaves, and
+     `IdentifyService(aot=path)` against the live service on 16 requests
+     (masks, boxes and top names equal outside near-ties); (d) `serve
+     --aot out.frtz` in its own process answers /identify as the bundle
+     does in process, and exits 0 on SIGTERM
+ 16. one JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
@@ -178,6 +208,7 @@ frame clear 0.5.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import http.client
 import io
@@ -191,6 +222,7 @@ import sys
 import tempfile
 import threading
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -199,6 +231,8 @@ import torch
 from facerecognizeonnx_tpu_torch import FaceDetector, FaceRecognizer, bridge
 from facerecognizeonnx_tpu_torch.cli import main as cli_main
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
+from facerecognizeonnx_tpu_torch.detect.decode import decode_outputs
+from facerecognizeonnx_tpu_torch.detect.pipeline import nms_candidates
 from facerecognizeonnx_tpu_torch.embed.pipeline import (
     _align_matrices,
     align_faces_batch,
@@ -209,9 +243,9 @@ from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.models import arcface, packs, quant, scrfd
 from facerecognizeonnx_tpu_torch.ops import gallery_cuda, nms, warp_cuda
-from facerecognizeonnx_tpu_torch.ops.image import letterbox
+from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
-from facerecognizeonnx_tpu_torch.pipeline import bucketed
+from facerecognizeonnx_tpu_torch.pipeline import aot, bucketed
 from facerecognizeonnx_tpu_torch.pipeline.client import IdentifyClient, ServiceError
 from facerecognizeonnx_tpu_torch.pipeline.enroll import enroll_batch
 from facerecognizeonnx_tpu_torch.pipeline.fused import (
@@ -237,16 +271,22 @@ PEAK_TF32_OPS_PER_S = 495e12
 # their source (coordinates, 4 hat weights, 4 y taps and 2 x taps on 3
 # channels; the epilogue adds 6)
 WARP_OPS_PER_PIXEL = 80
+# float32 operations per candidate pair of the NMS kernel's IoU, counted
+# from its source: 4 min / max, 2 widths, 2 clamps, the product, the
+# union's add and subtract, its clamp, the division and the compare
+NMS_OPS_PER_PAIR = 14
 COUNTERS = {
     "warp_xm": warp_cuda.warp_affine_xm,
     "warp_xm_pyramid": warp_cuda.build_pyramid,
     "warp_ym": warp_cuda.warp_affine_ym,
     "gallery_topk": gallery_cuda.gallery_topk_cuda,
+    "nms_greedy": nms.nms_greedy,
 }
 BUILDS = {
     "csrc/warp_xm.cu": warp_cuda.build_library,
     "csrc/warp_ym.cu": warp_cuda.build_library_ym,
     "csrc/gallery_topk.cu": gallery_cuda.build_library,
+    "csrc/nms_greedy.cu": nms.build_library,
     # the host runtime (g++), built beside the kernels
     "runtime/cc/frt_runtime.cc": lambda: (native._load(), ""),
 }
@@ -462,6 +502,65 @@ def table_bits_equal(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     """Per face: every entry equal bit for bit, or both NaN."""
     same = got.view(torch.int32) == want.view(torch.int32)
     return (same | (torch.isnan(got) & torch.isnan(want))).all(dim=-1)
+
+
+def nms_edge_boxes(rng, B, K, int_rects):
+    """(B, K, 4) float32 boxes in score order whose overlaps sit at the NMS
+    threshold 0.4: rows of 4 boxes of one size, each shifted from the last
+    by 3/7 of the width (or, in a third of the rows, of the height), so
+    that two neighbours overlap by IoU 2/5. With int_rects the sizes are
+    multiples of 7 and the shifts whole, so the IoU of the truncated rects
+    is 2/5 exactly or a pixel off it (shifts of 3/7 ± 1 px, and corner
+    fractions that truncation drops); without, every coordinate is nudged
+    by up to 4 float32 ulps, so IoUs fall within a few ulps of 0.4. The
+    rows are shuffled together, so chains of suppression interleave."""
+    out = np.empty((B, K, 4), np.float32)
+    for b in range(B):
+        boxes = []
+        while len(boxes) < K:
+            x, y = np.floor(rng.uniform(0, 400, 2))
+            if int_rects:
+                m, n = rng.integers(2, 20, 2)
+                w, h = 7.0 * m, 7.0 * n
+                step = 3.0 * m + rng.integers(-1, 2), 3.0 * n + rng.integers(-1, 2)
+            else:
+                w, h = rng.uniform(14, 140, 2)
+                step = 3 * w / 7, 3 * h / 7
+            dx, dy = (step[0], 0.0) if rng.uniform() < 2 / 3 else (0.0, step[1])
+            for i in range(4):
+                boxes.append([x + i * dx, y + i * dy, x + i * dx + w, y + i * dy + h])
+        box = np.asarray(boxes[:K], np.float32)
+        if int_rects:
+            box += rng.uniform(0, 1, box.shape).astype(np.float32)
+        else:
+            nudge = rng.integers(-4, 5, box.shape).astype(np.int32)
+            box = (box.view(np.int32) + nudge).view(np.float32)
+        out[b] = box[rng.permutation(K)]
+    return out
+
+
+def nms_inputs(det_model, frames_u8: torch.Tensor, cfg: PipelineConfig):
+    """The candidate sets the main path hands its NMS for these frames:
+    (boxes (B, pre_nms_topk, 4) in score order, valid (B, pre_nms_topk))."""
+    dtype = cfg.torch_compute_dtype
+    with torch.no_grad():
+        x = normalize_to_rgb(frames_u8, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
+        scores, boxes, kps = decode_outputs(det_model(x, dtype), cfg.det_input_size,
+                                            cfg.num_anchors)
+        boxes, _, _, valid = nms_candidates(scores, boxes, kps, 1.0, cfg)
+    return boxes, valid
+
+
+def nms_plain_histogram(runs, cfg: PipelineConfig) -> dict:
+    """{fixpoint iterations: calls} of the plain NMS (`nms_greedy_reference`,
+    which counts them) on the candidates that each (detector, frames) pair
+    of `runs` gives; the path itself runs the kernel, which has no such
+    count. Outside any timed window."""
+    nms.nms_fixed.iterations.clear()
+    for det_model, frames_u8 in runs:
+        boxes, valid = nms_inputs(det_model, frames_u8, cfg)
+        nms.nms_greedy_reference(boxes, valid, cfg.nms_threshold, cfg.nms_int_rects)
+    return dict(sorted(nms.nms_fixed.iterations.items()))
 
 
 def detection_bias(det_tree, frames_u8: torch.Tensor, per_frame=32):
@@ -1129,6 +1228,7 @@ def phase_native_bucketed(dev, rng, det, rec, frames, api, cfg=None, camera_hw=(
     torch.cuda.synchronize()
     step_counts = read_counts()
     assert step_counts["warp_xm"] == step_counts["warp_xm_pyramid"] == 1, step_counts
+    assert step_counts["nms_greedy"] == 1, step_counts
     assert n == B * CAP and pipe.last_bucket == 32 and pipe.corrections == 0, \
         (n, pipe.last_bucket, pipe.corrections)
     for a, b in zip(dets, dense[0]):
@@ -1264,9 +1364,12 @@ def phase_native_bucketed(dev, rng, det, rec, frames, api, cfg=None, camera_hw=(
         f"of the {cfg.match_threshold} threshold); {n_match} Match against frame 0's enrolled "
         f"face; sims to it min {sims_all.min():.4f} median {np.median(sims_all):.4f}")
 
-    hist = dict(sorted(nms.nms_fixed.iterations.items()))
-    log(f"NMS fixpoint iterations per call over the whole drive (iterations: calls): {hist}; "
-        f"host checks every {nms.ITERS_PER_CHECK} iterations")
+    cams = [torch.from_numpy(np.stack(boxed[i:i + 8])).to(dev) for i in range(0, n_req, 8)]
+    hist = nms_plain_histogram([(det, frames)] + [(face_det.params, c) for c in cams], cfg)
+    log(f"NMS fixpoint iterations per call of the plain version (nms_greedy_reference) on the "
+        f"candidates of phase 5's frames and of the {n_req} letterboxed camera frames, in "
+        f"batches of 8 (iterations: calls): {hist}; the path runs csrc/nms_greedy.cu, one "
+        f"greedy scan with no host read")
     out["nms_hist"] = hist
     return out
 
@@ -1385,7 +1488,7 @@ def phase_families(dev, frames, bank, n_rows, K, top_k, smi):
             torch.cuda.synchronize()
             counts, mm = read_counts(), quant.int_mm.launches
             assert counts == {"warp_xm": 1, "warp_xm_pyramid": 1, "warp_ym": 0,
-                              "gallery_topk": 0}, (label, counts)
+                              "gallery_topk": 0, "nms_greedy": 1}, (label, counts)
             assert (mm > 0) == bool(quant_opt), (label, mm)
             slot_valid = dets.valid[:, :K]
             assert slot_valid.any(dim=-1).all(), f"{label}: a frame found no faces"
@@ -2142,6 +2245,302 @@ def phase_onnx(dev, frames, det_tree, rec_tree, native_models, native, bank, n_r
     log(f"phase {time.perf_counter() - t_phase:.1f} s | card: {smi}")
 
 
+# ---------------------------------------------------------------- phases 14-15: NMS, AOT
+
+# replays of the captured step between two reads of the kernels' device counters
+N_REPLAYS = 5
+
+
+def chain_case():
+    """tests/test_torch_detect.py's suppression chain of 3·ITERS_PER_CHECK
+    boxes (each overlaps only the next, at IoU 3/17) beside a clustered
+    frame, in candidate order: (boxes (2, 12, 4), valid, threshold 0.1)."""
+    n = 3 * nms.ITERS_PER_CHECK
+    x1 = np.arange(n, dtype=np.float32) * 7.0
+    chain = np.stack([x1, np.zeros(n), x1 + 10.0, np.full(n, 10.0)], -1)
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(20, 300, (6, 2))[rng.integers(0, 6, n)] + rng.normal(0, 6, (n, 2))
+    wh = rng.uniform(20, 60, (n, 2))
+    clustered = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+    return np.stack([chain, clustered]).astype(np.float32), np.ones((2, n), bool), 0.1
+
+
+def phase_nms(dev, rng, det, frames, cfg) -> dict:
+    """csrc/nms_greedy.cu vs its plain version, bit for bit, on phase 5's
+    candidates, the 12-box chain and the edge sweeps; its time beside its
+    bound and the plain loop's. Returns its kernels-line entry."""
+    main_boxes, main_valid = nms_inputs(det, frames, cfg)
+    cases = {"phase 5's candidates": (main_boxes, main_valid, cfg.nms_threshold,
+                                      cfg.nms_int_rects)}
+    cases["12-box chain"] = (*chain_case(), True)
+    for int_rects in (True, False):
+        for nb in (1, 16):
+            boxes = nms_edge_boxes(rng, nb, 512, int_rects)
+            cases[f"edge sweep int_rects={int_rects} B={nb}"] = (
+                boxes, rng.uniform(0, 1, (nb, 512)) > 0.15, 0.4, int_rects)
+    kept, edges = {}, 0
+    for label, (boxes, valid, thr, int_rects) in cases.items():
+        boxes, valid = torch.as_tensor(boxes, device=dev), torch.as_tensor(valid, device=dev)
+        got = nms.nms_greedy(boxes, valid, thr, int_rects)
+        want = nms.nms_greedy_reference(boxes, valid, thr, int_rects)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"NMS kernel vs plain, {label}: {int((got != want).sum())} candidates differ"
+        kept[label] = f"{int(got.sum())}/{int(valid.sum())}"
+        if label == "12-box chain":  # every other box of the chain survives
+            assert got[0].tolist() == [i % 2 == 0 for i in range(got.shape[1])], got[0]
+        if label.startswith("edge"):
+            ib = nms._int_rects(boxes) if int_rects else boxes
+            ulps = (nms.iou_matrix(ib, ib).view(torch.int32)
+                    - torch.tensor(0.4, device=dev).view(torch.int32)).abs()
+            edges += int((torch.triu(ulps <= 4, diagonal=1)).sum())
+    thr, ir = cfg.nms_threshold, cfg.nms_int_rects
+    nms_ms, plain_ms = in_turns(
+        graph_timer(lambda: nms.nms_greedy(main_boxes, main_valid, thr, ir)),
+        eager_timer(lambda: nms.nms_greedy_reference(main_boxes, main_valid, thr, ir)),
+    )
+    n_b, n_k = main_valid.shape
+    # the IoUs this run's data needs: each valid candidate's row, over the
+    # candidates after it (what the kernel computes)
+    pairs = int((n_k - 1 - torch.nonzero(main_valid)[:, 1]).sum())
+    bound, bound_by = bound_ms(n_b * n_k * (16 + 1 + 1), pairs * NMS_OPS_PER_PAIR)
+    log(f"nms_greedy vs plain (the fixpoint loop), keep masks bit for bit: "
+        + ", ".join(f"{k} {v} kept" for k, v in kept.items())
+        + f"; the edge sweeps hold {edges} pairs within 4 ulps of IoU 0.4 | at phase 5's "
+        f"candidates (B={n_b}, K={n_k}, {int(main_valid.sum())} valid, {pairs:,} IoUs; "
+        f"median of 20 in turns): kernel {nms_ms:.4f} ms (CUDA-graph replays), plain "
+        f"{plain_ms:.4f} ms (eager, its host reads included), bound {bound:.5f} ms "
+        f"({bound_by}) | card: {nvidia_smi()}")
+    return dict(ms=nms_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, max_abs_err=0.0)
+
+
+def _bundle_state(path: str):
+    """The leaves of a .frtz bundle as {"det": state_dict, "rec": state_dict}
+    (meta.json's names, params.npz's index-keyed arrays)."""
+    with zipfile.ZipFile(path) as z:
+        meta = json.loads(z.read("meta.json"))
+        with np.load(io.BytesIO(z.read("params.npz"))) as npz:
+            arrays = [npz[k] for k in sorted(npz.files)]
+    out = {"det": {}, "rec": {}}
+    for name, arr in zip(meta["leaves"], arrays):
+        part, key = name.split(".", 1)
+        out[part][key] = torch.from_numpy(arr)
+    return out
+
+
+def _hold_replay(label, got, dets, feats, K, feat_bar=None):
+    """A replay's outputs against an eager step's: valid masks equal, boxes
+    within 1e-3; features within feat_bar, else measured. Returns (box
+    max|d|, feature cosine min over valid slots, feature max|d|)."""
+    boxes, _, _, valid, f = got
+    assert torch.equal(valid, dets.valid), f"{label}: valid masks differ from the eager step's"
+    box_err = float((boxes - dets.boxes).abs().max())
+    assert box_err <= 1e-3, (label, box_err)
+    slot = valid[:, :K]
+    assert slot.any(), f"{label}: no faces"
+    check_features(f, slot)
+    err = float((f - feats).abs().max())
+    assert feat_bar is None or err <= feat_bar, (label, err, feat_bar)
+    return box_err, float((f * feats).sum(-1)[slot].min()), err
+
+
+def phase_aot(dev, frames, det_tree, rec_tree, det, rec, cfg=None, cli_args=()):
+    """The fused step as `.frtz` bundles (module docstring, phase 15)."""
+    t_phase = time.perf_counter()
+    B, K = frames.shape[0], 8
+    cfg = cfg or PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda")
+    frames_np = frames.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        # ---- (a) phase 5's models: export, load, capture, replay (bf16)
+        path = os.path.join(tmp, "main.frtz")
+        t0 = time.perf_counter()
+        aot.save_bundle(path, det, rec, cfg, B, K)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe = aot.load_bundle(path, device=dev)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = pipe(frames)
+        torch.cuda.synchronize()
+        t_capture = time.perf_counter() - t0
+        eager = frames_to_features(det, rec, frames, cfg, K)
+        box_err, bf16_cos, bf16_err = _hold_replay("bf16 replay", got, *eager, K)
+
+        # the witness: each kernel counts its launches on the device
+        before = (nms.device_launches(), *warp_cuda.device_launches())
+        for _ in range(N_REPLAYS):
+            pipe(frames)
+        after = (nms.device_launches(), *warp_cuda.device_launches())
+        moved = dict(zip(("nms_greedy", "warp_xm_pyramid", "warp_xm"),
+                         (a - b for a, b in zip(after, before))))
+        assert list(moved.values()) == [N_REPLAYS] * 3, \
+            f"device launch counts over {N_REPLAYS} replays: {moved}"
+        reset_counts()
+        pipe(frames)
+        torch.cuda.synchronize()
+        assert all(v == 0 for v in read_counts().values()), "a replay ran Python launches"
+
+        # eager step and replay in turns, host clock around synchronized calls
+        def eager_step():
+            frames_to_features(det, rec, frames, cfg, K)
+
+        times = {"eager": [], "replay": []}
+        for _ in range(10):
+            for name, fn in (("eager", eager_step), ("replay", lambda: pipe(frames))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        ops = {"eager": device_ops(eager_step), "replay": device_ops(lambda: pipe(frames))}
+        stats = {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
+
+        # ---- (b) float32 (TF32 off): the replay within 1e-5, and after
+        # swap_params within 3e-5 of the eager step on the new weights
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        path32 = os.path.join(tmp, "main32.frtz")
+        aot.save_bundle(path32, det, rec, cfg32, B, K)
+        pipe32 = aot.load_bundle(path32, device=dev)
+        rec2 = arcface.fold_inference_params(
+            bridge.params_from_numpy(bridge.init_params_numpy(cfg.rec_arch, seed=5), dev))
+        with tf32_off():
+            _, cos32, err32 = _hold_replay(
+                "float32 replay", pipe32(frames),
+                *frames_to_features(det, rec, frames, cfg32, K), K, feat_bar=1e-5)
+            before32 = pipe32(frames)[4]
+            pipe32.swap_params(arc_params=rec2)
+            swapped = pipe32(frames)
+            _, _, err_swap = _hold_replay(
+                "float32 replay after swap_params", swapped,
+                *frames_to_features(det, rec2, frames, cfg32, K), K, feat_bar=3e-5)
+        moved_by_swap = float((swapped[4] - before32).abs().max())
+        assert moved_by_swap > 1e-2, "swap_params left the features where they were"
+        del pipe32
+        log(f"AOT bundle of phase 5's models (SCRFD-{cfg.scrfd_variant} {cfg.det_input_size} + "
+            f"{cfg.rec_arch}, folded, B={B}, K={K}): save_bundle {t_save:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+            f"load_bundle {t_load:.2f} s, first call (warm-up + capture) {t_capture:.2f} s; "
+            f"bf16 replay vs eager frames_to_features: valid masks equal, boxes max|d| "
+            f"{box_err:.3g} (bar 1e-3), features cosine min {bf16_cos:.7f}, max|d| "
+            f"{bf16_err:.3g}; float32 (TF32 off): features max|d| {err32:.3g} (bar 1e-5, "
+            f"cosine min {cos32:.7f}), after swap_params to {cfg.rec_arch} seed 5 {err_swap:.3g} "
+            f"(bar 3e-5; the swap moved them by {moved_by_swap:.3g}) | device launch counts "
+            f"over {N_REPLAYS} replays {moved} (Python counts 0) | step, median of 10 in "
+            f"turns [min-max], wall, synchronized: eager {stats['eager'][0]:.3f} ms "
+            f"[{stats['eager'][1]:.3f}-{stats['eager'][2]:.3f}], replay "
+            f"{stats['replay'][0]:.3f} ms [{stats['replay'][1]:.3f}-{stats['replay'][2]:.3f}] "
+            f"(frames copied in, 5 outputs copied out); device operations traced / kernel "
+            f"launches called: eager {ops['eager'][0]} / {ops['eager'][1]}, replay "
+            f"{ops['replay'][0]} / {ops['replay'][1]} | card: {nvidia_smi()}")
+
+        # ---- (c) the CLI's `export out.frtz` (models loaded on the CPU, so
+        # the program is traced from CPU tensors) served on the card by
+        # IdentifyService(aot=path) against the live service
+        det_path, rec_path = os.path.join(tmp, "det.npz"), os.path.join(tmp, "rec.npz")
+        checkpoint.save_params(det_path, det_tree)
+        checkpoint.save_params(rec_path, rec_tree)
+        models = ["--det-model", det_path, "--rec-model", rec_path, *cli_args]
+        cli_path = os.path.join(tmp, "cli.frtz")
+        doc, t_export = _cli_json(["export", cli_path, "--batch", str(B), "--cpu", *models])
+        assert doc["format"] == "frtz" and doc["batch"] == B, doc
+        state = _bundle_state(cli_path)
+        det_c, rec_c = copy.deepcopy(det), copy.deepcopy(rec)
+        det_c.load_state_dict(state["det"])
+        rec_c.load_state_dict(state["rec"])
+        t0 = time.perf_counter()
+        cli_pipe = aot.load_bundle(cli_path, device=dev)
+        cli_cfg = cli_pipe.config
+        cli_eager = frames_to_features(det_c, rec_c, frames, cli_cfg, K)
+        cli_box, cli_cos, cli_err = _hold_replay("CPU-exported bundle on the card",
+                                                 cli_pipe(frames), *cli_eager, K)
+        t_cli_run = time.perf_counter() - t0
+        dets_c, feats_c = cli_eager
+        names, rows = [], []
+        for b in range(B):
+            for k in range(K):
+                if dets_c.valid[b, k]:
+                    names.append(f"f{b}s{k}")
+                    rows.append(feats_c[b, k].cpu().numpy())
+        bank = GalleryBank(device=dev)
+        bank.add_batch(names, np.stack(rows))
+        extra = np.random.default_rng(15).normal(size=(1_000, 512)).astype(np.float32)
+        bank.add_batch([f"random{i}" for i in range(len(extra))], extra)
+        requests = [frames_np[i % B] for i in range(2 * B)]
+        answers = {}
+        for label, svc in (
+            ("live", lambda: IdentifyService(det_c, rec_c, bank, cli_cfg, max_batch=B,
+                                             max_faces=K, device=dev)),
+            ("aot", lambda: IdentifyService(None, None, bank, aot=cli_path, device=dev)),
+        ):
+            service = svc()
+            [f.result(600) for f in [service.identify_async(im, 5) for im in requests[:B]]]
+            t0 = time.perf_counter()
+            answers[label] = [f.result(600) for f in
+                              [service.identify_async(im, 5) for im in requests]]
+            answers[label + " s"] = time.perf_counter() - t0
+            service.close()
+        aot_service = IdentifyService(None, None, bank, aot=cli_pipe, device=dev)
+        checked = equal = top1 = 0
+        for i, (a, w) in enumerate(zip(answers["aot"], answers["live"])):
+            assert np.array_equal(a.valid, w.valid) and a.valid.any(), f"request {i}: masks"
+            assert np.allclose(a.boxes, w.boxes, atol=1e-3), f"request {i}: boxes"
+            c, e = names_outside_ties(w, a, SERVED_SIM_BAR)
+            checked, equal = checked + c, equal + e
+            top1 += sum(a.names[j][0] == w.names[j][0] for j in np.nonzero(a.valid)[0])
+        assert equal == checked and checked >= len(requests), (equal, checked)
+
+        # ---- (d) `serve --aot` in its own process
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "facerecognizeonnx_tpu_torch", "serve", "--port", "0",
+             "--aot", cli_path, *models],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        seen, marks = [], {}
+        try:
+            port = None
+            for line in proc.stdout:
+                seen.append(line)
+                for key, text in (("models", "所有模型加载成功"), ("bundle", "AOT")):
+                    if key not in marks and text in line:
+                        marks[key] = time.perf_counter() - t0
+                m = re.search(r"http://[0-9.]+:(\d+)", line)
+                if m:
+                    port = int(m.group(1))
+                    break
+            assert port and "bundle" in marks, "".join(seen)[-3000:]
+            t_up = time.perf_counter() - t0
+            faces = IdentifyClient("127.0.0.1", port, timeout=300).identify(
+                png_bytes(np.ascontiguousarray(frames_np[0][..., ::-1])), top_k=1)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            assert rc == 0, (rc, proc.stdout.read()[-3000:])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        want = aot_service.identify(frames_np[0], top_k=1)
+        aot_service.close()
+        assert len(faces) == int(want.valid.sum()) > 0, (len(faces), want.valid)
+        served_err = float(np.abs(np.asarray([f["box"] for f in faces])
+                                  - want.boxes[want.valid]).max())
+        assert served_err <= 1e-2, served_err
+    log(f"CLI `export out.frtz --batch {B} --cpu` (traced from CPU tensors) {t_export:.2f} s, "
+        f"loaded and replayed on the card vs the eager step on its leaves: valid masks "
+        f"equal, boxes max|d| {cli_box:.3g}, features cosine min {cli_cos:.7f} max|d| "
+        f"{cli_err:.3g} ({t_cli_run:.2f} s with the load) | IdentifyService(aot=path) vs the "
+        f"live service, {len(requests)} concurrent frames of phase 5, bank {len(bank):,} rows: "
+        f"masks and boxes equal, top-1 names {top1} of {sum(int(a.valid.sum()) for a in answers['aot'])} "
+        f"slots equal, names equal on all {checked} positions clear of near-ties; "
+        f"{answers['aot s']:.3f} s vs {answers['live s']:.3f} s live | `serve --aot` in its "
+        f"own process, s after start: models loaded {marks.get('models', float('nan')):.2f}, "
+        f"bundle loaded and captured {marks['bundle']:.2f}, listening {t_up:.2f}; /identify answered "
+        f"{len(faces)} faces, boxes within {served_err:.3g} of the in-process bundle's, "
+        f"SIGTERM -> exit 0 | phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2168,7 +2567,6 @@ def main() -> int:
 
     # ---- 3. the x-major warp kernels vs their plain versions
     phase(3)
-    nms.nms_fixed.iterations.clear()  # phase 10 prints the drive's histogram
     rng = np.random.default_rng(0)
     xm, pyramid, warp_case = phase_warp_xm(dev, rng)
 
@@ -2232,6 +2630,7 @@ def main() -> int:
         main_launches = main_counts["warp_xm"]
         assert main_launches > 0, "the main path did not launch the warp kernel"
         assert main_counts["warp_xm_pyramid"] > 0, "the main path built no pyramid"
+        assert main_counts["nms_greedy"] > 0, "the main path did not launch the NMS kernel"
         slot_valid = dets.valid[:, :K]
         assert slot_valid.any(dim=-1).all(), "a frame found no faces"
         check_features(feats, slot_valid, N_ROWS, idx)
@@ -2328,8 +2727,16 @@ def main() -> int:
     phase_onnx(dev, frames, det_tree, rec_tree, (det, rec), (dets, feats, sims, idx), bank,
                N_ROWS, K, TOP_K, smi)
 
-    # ---- 14. result lines
+    # ---- 14. the NMS kernel vs its plain version
     phase(14)
+    nms_entry = phase_nms(dev, rng, det, frames, cfg)
+
+    # ---- 15. the fused step as .frtz bundles, replayed as one CUDA graph
+    phase(15)
+    phase_aot(dev, frames, det_tree, rec_tree, det, rec)
+
+    # ---- 16. result lines
+    phase(16)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
@@ -2347,6 +2754,11 @@ def main() -> int:
         dict(name="gallery_topk", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/gallery_topk.cu",
              replaces="facerecognizeonnx_tpu/ops/pallas_gallery.py:60 (_kernel)", **gallery),
+        dict(name="nms_greedy", route="cuda",
+             source="facerecognizeonnx_tpu_torch/csrc/nms_greedy.cu",
+             replaces="facerecognizeonnx_tpu/ops/nms.py:100-112 (nms_fixed's lax.while_loop; "
+                      "no Pallas kernel)",
+             launches=main_counts["nms_greedy"], **nms_entry),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

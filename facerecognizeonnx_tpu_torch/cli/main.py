@@ -13,6 +13,8 @@ Extras:
   serve --port 8080                          — HTTP identify/enroll service
   export out.onnx [--detector]               — the recognizer (or detector)
                                                as an ONNX graph
+  export out.frtz [--batch 8]                — the whole fused step as an
+                                               AOT bundle (pipeline/aot.py)
   doctor                                     — environment diagnosis
   --json                                     — one JSON document on stdout,
                                                human output on stderr
@@ -20,10 +22,10 @@ Extras:
 Weights: `.npz` or `.onnx` (--det-model / --rec-model, or a --pack whose
 files are in --model-dir), seeded random weights otherwise. Every mode
 runs on the CUDA card unless `--cpu` is given; without a card and
-without `--cpu` the CLI prints why and returns non-zero. Not ported
-yet, and raising NotImplementedError that names its ROADMAP.md item: the
-modes bench, train and eval, `export` to a `.frtz` bundle, and the
-options --experts, --sharded, --dp and --aot.
+without `--cpu` the CLI prints why and returns non-zero. `serve --aot
+b.frtz` answers /identify from a bundle. Not ported yet, and raising
+NotImplementedError that names its ROADMAP.md item: the modes bench,
+train and eval, and the options --experts, --sharded and --dp.
 
 Headless by default: annotated images are written next to the input
 (`<name>_out.jpg`, which needs cv2 or PIL to encode); `--show` opens
@@ -58,9 +60,7 @@ UNPORTED_OPTIONS = {
     "experts": "expert-parallel enrollment is not ported yet (ROADMAP.md Queue A item 16)",
     "sharded": "sharded galleries are not ported yet (ROADMAP.md Queue A item 16)",
     "dp": "data-parallel serving is not ported yet (ROADMAP.md Queue A item 16)",
-    "aot": "AOT bundles are not ported yet (ROADMAP.md Queue A item 18b)",
 }
-UNPORTED_FRTZ = "AOT (.frtz) export is not ported yet (ROADMAP.md Queue A item 18b)"
 
 
 def _load_models(args):
@@ -475,9 +475,11 @@ def mode_serve(args):
             else GalleryBank(device=args.device))
     server = make_server(
         detector, recognizer, bank, host=args.host, port=args.port,
-        auth_token=args.auth_token, fuse_search=args.fuse_search,
+        auth_token=args.auth_token, aot=args.aot, fuse_search=args.fuse_search,
         adaptive_embed=args.adaptive_embed, device=args.device,
     )
+    if args.aot:
+        print(f"identify 热路径使用 AOT 程序包: {args.aot}")
     if args.fuse_search:
         print("identify 单次调度: gallery top-k 已融合进设备程序")
     if args.adaptive_embed:
@@ -506,12 +508,17 @@ def mode_serve(args):
 
 
 def mode_export(args):
-    """The recognizer (or with --detector the detector) as an ONNX graph
-    at the `.onnx` path given (onnx_export/), loadable by ONNX Runtime.
-    Weights from --rec-model / --det-model (`.npz`), else seeded; the
-    module is exported UNFOLDED: the graph carries explicit
-    BatchNormalization nodes, as the published w600k files do. A `.frtz`
-    path raises (ROADMAP.md Queue A item 18b)."""
+    """Serialize models for deployment, dispatched on the output path:
+
+    *.onnx — the recognizer (or with --detector the detector) as an ONNX
+    graph (onnx_export/), loadable by ONNX Runtime. Weights from
+    --rec-model / --det-model (`.npz`), else seeded; the module is
+    exported UNFOLDED: the graph carries explicit BatchNormalization
+    nodes, as the published w600k files do.
+
+    *.frtz — the whole fused detect→align→embed step as an AOT bundle
+    (pipeline/aot.save_bundle) of the models `serve` would load (BN
+    folded); `--batch` fixes the frame batch (default 8)."""
     from facerecognizeonnx_tpu_torch import bridge
     from facerecognizeonnx_tpu_torch.onnx_export import export_detector, export_recognizer
     from facerecognizeonnx_tpu_torch.pipeline.api import _load_onnx, _load_tree, _to_module
@@ -519,7 +526,15 @@ def mode_export(args):
     cfg = _cfg(args)
     out = args.images[0]
     if out.endswith(".frtz"):
-        raise NotImplementedError(f"export: {UNPORTED_FRTZ}")
+        from facerecognizeonnx_tpu_torch.pipeline.aot import save_bundle
+
+        detector, recognizer = _load_models(args)
+        batch = args.batch or 8
+        save_bundle(out, detector.params, recognizer.params, detector.cfg, batch=batch)
+        size = os.path.getsize(out)
+        print(f"已导出 AOT 程序包: {out} ({size / 1e6:.1f} MB, batch={batch})")
+        return {"mode": "export", "out": out, "format": "frtz", "batch": batch,
+                "bytes": size}
 
     def load(path, init_fn):
         if path is not None and path.endswith(".onnx"):
@@ -721,7 +736,7 @@ def main(argv=None):
     parser.add_argument("--sharded", action="store_true",
                         help="identify/serve: shard the gallery (not ported yet)")
     parser.add_argument("--aot", default=None,
-                        help="serve: a .frtz AOT bundle (not ported yet)")
+                        help="serve: answer /identify from a .frtz AOT bundle (export out.frtz)")
     parser.add_argument("--dp", type=int, default=0,
                         help="serve: data-parallel device count (not ported yet)")
     parser.add_argument(
@@ -769,8 +784,10 @@ def main(argv=None):
                         help="run on the host CPU instead of the CUDA card")
     parser.add_argument("--enroll-first", action="store_true",
                         help="webcam: enroll the first detected face automatically")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="export out.frtz: the bundle's frame batch (default 8); "
+                        "train/eval (not ported yet)")
     for flag, kw in (("--steps", dict(type=int, default=200)),
-                     ("--batch", dict(type=int, default=None)),
                      ("--lr", dict(type=float, default=None)),
                      ("--margin", dict(type=float, default=0.5)),
                      ("--out", dict(default="trained_rec.npz")),

@@ -68,6 +68,10 @@ constexpr int WARP_THREADS = BAND * GROUPS_PER_ROW;  // 224
 constexpr int STAGE_BYTES = 64 * 1024;    // window box budget in shared memory
 constexpr int PYR_TILE = 64;
 constexpr int PYR_THREADS = 256;
+// launches so far of pyramid_kernel [0] and warp_xm_kernel [1], each counted
+// once by its first block (read by warp_xm_launch_counts), so a run can see
+// the launches that a CUDA-graph replay makes without Python
+__device__ unsigned long long g_launches[2];
 
 // ------------------------------------------------------------ the face table
 
@@ -113,6 +117,8 @@ pyramid_kernel(const uint8_t* __restrict__ frames, uint8_t* __restrict__ upper, 
   __shared__ float l2[16][16 * 3];
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * PYR_TILE, x0 = blockIdx.x * PYR_TILE;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && b == 0)
+    atomicAdd(&g_launches[0], 1ULL);
   const int rows = min(PYR_TILE, H - y0), cols = min(PYR_TILE, W - x0);
   const uint8_t* src = frames + (static_cast<size_t>(b) * H + y0) * W * 3 + x0 * 3;
   const int row_bytes = cols * 3;
@@ -204,6 +210,7 @@ warp_xm_kernel(const uint8_t* __restrict__ frames, const uint8_t* __restrict__ u
   const bool live = valid == nullptr || valid[n] != 0;
 
   if (threadIdx.x == 0) {
+    if (n == 0 && band == 0) atomicAdd(&g_launches[1], 1ULL);
     float t[N_PARAMS];
     face_table(Ms + static_cast<size_t>(n) * 6, t);
 #pragma unroll
@@ -399,6 +406,13 @@ int warp_xm_launch(const void* frames, const void* upper, const void* Ms, const 
     warp_xm_kernel<false><<<grid, WARP_THREADS, STAGE_BYTES, st>>>(fr, up, ms, val, out, tab, K,
                                                                     H, W, mean, inv_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[0], out[1]: the launches of pyramid_kernel and warp_xm_kernel on the
+// current device so far (a synchronous copy: for checks outside timed work).
+// Returns a cudaError_t.
+int warp_xm_launch_counts(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches)));
 }
 
 const char* warp_xm_error_string(int code) {

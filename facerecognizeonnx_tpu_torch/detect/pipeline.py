@@ -24,6 +24,28 @@ from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.types import Detections
 
 
+def nms_candidates(
+    scores: torch.Tensor,
+    boxes: torch.Tensor,
+    kps: torch.Tensor,
+    scale: float,
+    cfg: PipelineConfig,
+    score_threshold: Optional[float] = None,
+):
+    """Decoded anchors → the NMS input: the top `pre_nms_topk` anchors by
+    score (descending, ties in index order) as (boxes, scores, kps,
+    valid), coords divided by `scale`; valid = score > threshold."""
+    score_thr = cfg.score_threshold if score_threshold is None else score_threshold
+    ranked = torch.where(scores > score_thr, scores, torch.full_like(scores, -1.0))
+    top_scores, idx = topk_stable(ranked, cfg.pre_nms_topk)
+    inv = inv_k = 1.0 / scale
+    if isinstance(scale, torch.Tensor):  # per-frame (B,) scales
+        inv, inv_k = inv.reshape(-1, 1, 1), inv.reshape(-1, 1, 1, 1)
+    top_boxes = gather_rows(boxes, idx) * inv
+    top_kps = gather_rows(kps, idx) * inv_k
+    return top_boxes, top_scores, top_kps, top_scores > score_thr
+
+
 def postprocess(
     scores: torch.Tensor,
     boxes: torch.Tensor,
@@ -40,17 +62,10 @@ def postprocess(
     letterbox scales (coords are divided by it BEFORE NMS, as in the
     reference); returns (B, max_faces) slots.
     """
-    score_thr = cfg.score_threshold if score_threshold is None else score_threshold
     nms_thr = cfg.nms_threshold if nms_threshold is None else nms_threshold
-    ranked = torch.where(scores > score_thr, scores, torch.full_like(scores, -1.0))
-    top_scores, idx = topk_stable(ranked, cfg.pre_nms_topk)
-    inv = inv_k = 1.0 / scale
-    if isinstance(scale, torch.Tensor):  # per-frame (B,) scales
-        inv, inv_k = inv.reshape(-1, 1, 1), inv.reshape(-1, 1, 1, 1)
-    top_boxes = gather_rows(boxes, idx) * inv
-    top_kps = gather_rows(kps, idx) * inv_k
-    valid = top_scores > score_thr
-
+    top_boxes, top_scores, top_kps, valid = nms_candidates(
+        scores, boxes, kps, scale, cfg, score_threshold
+    )
     # top-k output is already descending → skip the re-sort in NMS
     boxes_s, scores_s, keep, order = nms_fixed(
         top_boxes, top_scores, nms_thr, valid, assume_sorted=True,

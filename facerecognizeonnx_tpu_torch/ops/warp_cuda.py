@@ -39,6 +39,12 @@ tensors `warp_affine_xm` / `warp_affine_ym` run the plain versions
 `warp_affine_xm_reference` / `warp_affine_ym_reference` (and
 `build_pyramid` runs `build_pyramid_reference`). A CUDA tensor never
 takes a plain version: the kernel launches or the wrapper raises.
+The pyramid and the x-major resample are `torch.library` custom ops
+(`frt::build_pyramid`, `frt::resample_xm`) whose CUDA registration is
+the launch and whose CPU registration is the plain version, so
+`torch.export` traces a call as two nodes (pipeline/aot.py). Each kernel
+of csrc/warp_xm.cu also counts its launches on the device
+(`device_launches`), which CUDA-graph replays do without Python.
 `warp_affine` is the counterpart of `warp_affine_pallas` and dispatches
 on `layout`.
 """
@@ -112,13 +118,15 @@ def build_pyramid(frames_u8: torch.Tensor) -> torch.Tensor:
     The values are those of both reference pyramids (`build_pyramid_xm`
     and `build_pyramid_cf`), without their zero canvas.
 
-    CUDA tensors launch the pyramid kernel of csrc/warp_xm.cu (counted in
-    `build_pyramid.launches`); CPU tensors run `build_pyramid_reference`."""
-    if frames_u8.device.type == "cpu":
-        return build_pyramid_reference(frames_u8)
+    A custom op (`frt::build_pyramid`): CUDA tensors launch the pyramid
+    kernel of csrc/warp_xm.cu (counted in `build_pyramid.launches`); CPU
+    tensors run `build_pyramid_reference`."""
     _check_frames(frames_u8)
+    return torch.ops.frt.build_pyramid(frames_u8.contiguous())
+
+
+def _launch_pyramid(frames_u8: torch.Tensor) -> torch.Tensor:
     B, H, W, _ = frames_u8.shape
-    frames_u8 = frames_u8.contiguous()
     out = torch.empty((B, upper_levels_bytes(H, W)), dtype=torch.uint8,
                       device=frames_u8.device)
     if B and out.shape[1]:
@@ -386,6 +394,8 @@ def _bind_xm(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_float, ptr,
     ]
     lib.warp_xm_launch.restype = i32
+    lib.warp_xm_launch_counts.argtypes = [ptr]
+    lib.warp_xm_launch_counts.restype = i32
     lib.warp_xm_error_string.argtypes = [i32]
     lib.warp_xm_error_string.restype = ctypes.c_char_p
 
@@ -516,13 +526,18 @@ def warp_affine_xm(
     scale) bf16 normalized RGB; valid (B, K) slots that are False get
     zeros and no reads.
 
-    CUDA tensors launch csrc/warp_xm.cu (and count the launch); CPU
-    tensors run `warp_affine_xm_reference`."""
-    if frames_u8.device.type == "cpu":
-        return warp_affine_xm_reference(frames_u8, Ms, epilogue, valid)
+    CUDA tensors launch csrc/warp_xm.cu (2 launches, each counted); CPU
+    tensors run the plain versions (`warp_affine_xm_reference`'s
+    arithmetic). Both steps are custom ops (`frt::build_pyramid`,
+    `frt::resample_xm`), so `torch.export` traces the call as two nodes
+    and an exported program runs on either device."""
     _check_inputs(frames_u8, Ms, valid)
     frames_u8 = frames_u8.contiguous()
-    return resample_xm(frames_u8, build_pyramid(frames_u8), Ms, epilogue, valid)[0]
+    mean, scale = (0.0, 1.0) if epilogue is None else epilogue
+    return torch.ops.frt.resample_xm(
+        frames_u8, build_pyramid(frames_u8), Ms.to(torch.float32).contiguous(), valid,
+        epilogue is not None, float(mean), float(scale),
+    )[0]
 
 
 def warp_affine_ym(
@@ -573,6 +588,58 @@ def warp_affine(
         raise InvalidInputError("the y-major warp returns raw BGR only (no epilogue or valid)")
     return warp_affine_ym(frames_u8, Ms, xpass_bf16)
 
+
+def device_launches() -> Tuple[int, int]:
+    """(pyramid, warp_xm) launches on the current device so far, as the
+    kernels of csrc/warp_xm.cu count them (CUDA-graph replays included);
+    waits for the device."""
+    lib, _ = build_library()
+    out = (ctypes.c_ulonglong * 2)()
+    _raise_on(lib.warp_xm_error_string, lib.warp_xm_launch_counts(out), "warp_xm count read")
+    return int(out[0]), int(out[1])
+
+
+# ---------------------------------------------------------------- custom ops
+
+
+def _pyramid_fake(frames_u8):
+    B, H, W, _ = frames_u8.shape
+    return frames_u8.new_empty((B, upper_levels_bytes(H, W)))
+
+
+def _resample_plain(frames_u8, pyr, Ms, valid, epilogue, mean, scale):
+    prm = face_params_xm(Ms)
+    out = resample_xm_reference(
+        frames_u8, pyr, prm, Ms.shape[1], (mean, scale) if epilogue else None, valid
+    )
+    return out, prm
+
+
+def _resample_launch(frames_u8, pyr, Ms, valid, epilogue, mean, scale):
+    return resample_xm(frames_u8, pyr, Ms, (mean, scale) if epilogue else None, valid)
+
+
+def _resample_fake(frames_u8, pyr, Ms, valid, epilogue, mean, scale):
+    B, K = Ms.shape[:2]
+    out = frames_u8.new_empty(
+        (B, K, OUT, OUT, 3), dtype=torch.bfloat16 if epilogue else torch.float32
+    )
+    return out, Ms.new_empty((B * K, N_PARAMS), dtype=torch.float32)
+
+
+_pyramid_op = torch.library.custom_op(
+    "frt::build_pyramid", build_pyramid_reference, mutates_args=(), device_types="cpu",
+    schema="(Tensor frames_u8) -> Tensor",
+)
+_pyramid_op.register_kernel("cuda")(_launch_pyramid)
+_pyramid_op.register_fake(_pyramid_fake)
+_resample_op = torch.library.custom_op(
+    "frt::resample_xm", _resample_plain, mutates_args=(), device_types="cpu",
+    schema="(Tensor frames_u8, Tensor pyr, Tensor Ms, Tensor? valid, bool epilogue, "
+           "float mean, float scale) -> (Tensor, Tensor)",
+)
+_resample_op.register_kernel("cuda")(_resample_launch)
+_resample_op.register_fake(_resample_fake)
 
 warp_affine_xm.launches = 0
 build_pyramid.launches = 0

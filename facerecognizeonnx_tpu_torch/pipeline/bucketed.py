@@ -19,9 +19,9 @@ behind program A and records an event, and only `finish()` waits on it.
 A guess that falls short is corrected exactly by running program B again
 at the right bucket. Buckets are powers of two from MIN_BUCKET up.
 
-`start()` still waits for the host inside NMS, once per batch of
-fixpoint iterations (`ops/nms.py`); a step without that sync is ROADMAP.md
-Queue A item 18b. The mesh form of the reference (`mesh=`) is item 16.
+Nothing in `start()` waits for the host: on the card the NMS is a kernel
+(csrc/nms_greedy.cu). The mesh form of the reference (`mesh=`) is
+ROADMAP.md Queue A item 16.
 
 Buckets are static batch sizes, and cuDNN and cuBLAS pick their kernels
 per shape, so in bfloat16 the bucketed features differ from the dense

@@ -319,8 +319,11 @@ def make_server(
     builds) happens before the first client request. fuse_search: one
     dispatch per micro-batch with the gallery top-k on the device;
     adaptive_embed: the occupancy-adaptive bucketed embed (see
-    IdentifyService). sharded, aot and mesh are not ported yet and raise
-    NotImplementedError (ROADMAP.md Queue A items 16 and 18b).
+    IdentifyService). aot: a .frtz path or `AotPipeline` — /identify runs
+    the loaded bundle (one CUDA-graph replay per micro-batch on the card)
+    while enrolls still go through detector / recognizer. sharded and mesh
+    are not ported yet and raise NotImplementedError (ROADMAP.md Queue A
+    item 16).
     """
     service = IdentifyService(
         detector.params, recognizer.params, bank, cfg=detector.cfg,

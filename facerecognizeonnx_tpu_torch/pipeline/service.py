@@ -17,6 +17,12 @@ after batch N+1 is dispatched, or at once when the queue is empty.
                      embed packs the detected faces of the micro-batch
                      into a bucket sized by recent occupancy; pad frames
                      of a partial batch are left out of the occupancy
+  aot                a `.frtz` bundle (path or `AotPipeline`,
+                     pipeline/aot.py) gives the features: on the card
+                     one CUDA-graph replay per micro-batch; the search
+                     stays `GalleryBank.search`. The bundle fixes the
+                     config, max_batch and max_faces; it excludes
+                     fuse_search, mesh, adaptive_embed and valid_cap
 
 Each micro-batch is answered against the bank version taken once at its
 dispatch (names, rows and length from one snapshot), so a bank that
@@ -28,8 +34,8 @@ co-riders before dispatching a partial batch), max_faces (embed slots
 per frame), search_top_k (the fused program's width), valid_cap (a
 benchmark control, see `pipeline.fused.detect_topk`).
 
-Not ported yet, and raising NotImplementedError: sharded, aot and mesh
-(ROADMAP.md Queue A items 16 and 18b).
+Not ported yet, and raising NotImplementedError: sharded and mesh
+(ROADMAP.md Queue A item 16).
 """
 
 from __future__ import annotations
@@ -48,13 +54,14 @@ import torch
 from facerecognizeonnx_tpu_torch.config import PipelineConfig, resolve_device
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.ops.image import letterbox_host
+from facerecognizeonnx_tpu_torch.pipeline.aot import load_bundle
 from facerecognizeonnx_tpu_torch.pipeline.bucketed import BucketedEmbedPipeline
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_features, frames_to_matches
+from facerecognizeonnx_tpu_torch.types import Detections
 
 UNPORTED = {
     "sharded": "sharded gallery rows (ROADMAP.md Queue A item 16)",
     "mesh": "data-parallel serving over a mesh (ROADMAP.md Queue A item 16)",
-    "aot": "ahead-of-time bundles (ROADMAP.md Queue A item 18b)",
 }
 
 
@@ -95,11 +102,33 @@ class IdentifyService:
         device="cuda",
     ):
         """det_params / arc_params: the SCRFD and recognizer modules (e.g.
-        `FaceDetector.params`, `FaceRecognizer.params`) on `device`."""
-        for name, value in (("sharded", sharded), ("aot", aot), ("mesh", mesh)):
+        `FaceDetector.params`, `FaceRecognizer.params`) on `device`; unused
+        (may be None) with aot, whose bundle is loaded onto `device` when
+        given as a path."""
+        if fuse_search and aot is not None:
+            raise ValueError(
+                "fuse_search does not compose with aot bundles (a bundle gives the "
+                "features; the search stays GalleryBank.search)"
+            )
+        if aot is not None and mesh is not None:
+            raise ValueError(
+                "aot and mesh are mutually exclusive: .frtz bundles are single-device "
+                "programs (export one per card and balance above the service instead)"
+            )
+        if aot is not None and (adaptive_embed or valid_cap is not None):
+            raise ValueError(
+                "adaptive_embed/valid_cap need the live programs; .frtz bundles bake "
+                "the dense step (serve without aot)"
+            )
+        for name, value in (("sharded", sharded), ("mesh", mesh)):
             if value:
                 raise NotImplementedError(f"{UNPORTED[name]} is not ported yet")
-        self.device = resolve_device(device)
+        if isinstance(aot, str):
+            aot = load_bundle(aot, device=device)
+        self.device = aot.device if aot is not None else resolve_device(device)
+        if aot is not None:
+            cfg, max_batch, max_faces = aot.config, aot.batch, aot.max_faces_embed
+        self.aot = aot
         self.det, self.arc = det_params, arc_params
         self.cfg = cfg
         self.bank = bank
@@ -216,9 +245,8 @@ class IdentifyService:
                     req.future.set_exception(e)
 
     def _dispatch(self, batch: List[_Request]) -> dict:
-        """Host letterbox + device program launch. The NMS inside waits
-        for the host once per batch of fixpoint iterations
-        (`ops/nms.py`); nothing else does."""
+        """Host letterbox + device program launch (nothing waits for the
+        device here)."""
         frames, scales = [], []
         for req in batch:
             padded, scale = self._letterbox(req.image)
@@ -230,7 +258,10 @@ class IdentifyService:
         store = self.bank._store
         ctx = {"batch": batch, "scales": scales, "store": store}
         with torch.no_grad():
-            if self.fuse_search:
+            if self.aot is not None:
+                boxes, scores, kps, valid, feats = self.aot(x)
+                ctx["out"] = (Detections(boxes, scores, kps, valid), feats)
+            elif self.fuse_search:
                 # an empty bank still runs the fused program: n_rows=0
                 # masks every sim and the names stay empty
                 bank_dev, n_rows, _ = self.bank.device_bank_padded(store=store)

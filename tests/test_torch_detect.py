@@ -249,3 +249,128 @@ def test_nms_chain_longer_than_one_check(monkeypatch):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
     assert got[2][0].numpy().tolist() == [i % 2 == 0 for i in range(n)]
+
+
+def _kernel_transcription(boxes, valid, threshold, int_rects):
+    """csrc/nms_greedy.cu in numpy, for the CPU: float32 IoU in the
+    kernel's order (every numpy float32 op rounds once, as the kernel's
+    _rn intrinsics do), suppression rows of 32-bit words for the valid
+    candidates only, and the scan word by word, lowest pending bit first."""
+    f = np.float32
+    B, K, _ = boxes.shape
+    W = (K + 31) // 32
+    keep = np.zeros((B, K), bool)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for b in range(B):
+            x1, y1, x2, y2 = (boxes[b, :, c].astype(f) for c in range(4))
+            if int_rects:
+                w, h = np.trunc(x2 - x1), np.trunc(y2 - y1)
+                x1, y1 = np.trunc(x1), np.trunc(y1)
+                x2, y2 = x1 + w, y1 + h
+            area = (x2 - x1) * (y2 - y1)
+            iw = np.maximum(np.minimum(x2[:, None], x2) - np.maximum(x1[:, None], x1), f(0))
+            ih = np.maximum(np.minimum(y2[:, None], y2) - np.maximum(y1[:, None], y1), f(0))
+            inter = iw * ih
+            iou = inter / np.maximum((area[:, None] + area) - inter, f(1e-12))
+            rows = (iou > f(threshold)) & np.triu(np.ones((K, K), bool), 1)
+            rows &= valid[b][:, None]  # only a valid candidate's row is computed
+            bits = np.zeros((K, W * 32), np.uint64)
+            bits[:, :K] = rows
+            mask = [[int(v) for v in r] for r in
+                    (bits.reshape(K, W, 32) << np.arange(32, dtype=np.uint64)).sum(-1)]
+            valid_w = [sum(1 << i for i in range(32) if 32 * w + i < K and valid[b, 32 * w + i])
+                       for w in range(W)]
+            removed = [0] * W
+            for w in range(W):
+                pending = valid_w[w] & ~removed[w]
+                while pending:
+                    bit = (pending & -pending).bit_length() - 1
+                    keep[b, 32 * w + bit] = True
+                    removed = [r | m for r, m in zip(removed, mask[32 * w + bit])]
+                    pending &= ~(1 << bit) & ~removed[w]
+    return keep
+
+
+@pytest.mark.parametrize("int_rects", [True, False])
+@pytest.mark.parametrize("B, K", [(1, 512), (16, 64)])
+def test_nms_kernel_transcription_matches_plain_and_jax_at_the_edge(B, K, int_rects):
+    """chip_smoke's sweep of overlaps at IoU 0.4 (exactly, or within a few
+    ulps), with holes in the valid mask: the kernel's algorithm and
+    rounding order (transcribed) give the plain fixpoint's mask, which is
+    JAX's."""
+    from chip_smoke import nms_edge_boxes
+
+    rng = np.random.default_rng(5)
+    boxes = nms_edge_boxes(rng, B, K, int_rects)
+    valid = rng.uniform(0, 1, (B, K)) > 0.15
+    plain = nms.nms_greedy(_t(boxes), _t(valid), 0.4, int_rects).numpy()
+    np.testing.assert_array_equal(_kernel_transcription(boxes, valid, 0.4, int_rects), plain)
+    scores = jnp.arange(K, 0, -1).astype(jnp.float32)
+    for b in range(B):
+        want = j_nms.nms_fixed(jnp.asarray(boxes[b]), scores, 0.4, jnp.asarray(valid[b]),
+                               True, int_rects)[2]
+        np.testing.assert_array_equal(plain[b], np.asarray(want))
+    ib = nms._int_rects(_t(boxes)) if int_rects else _t(boxes)
+    ulps = (nms.iou_matrix(ib, ib).view(torch.int32) - torch.tensor(0.4).view(torch.int32)).abs()
+    assert int((ulps <= 4).sum()) >= 2 * B  # the sweep reaches the edge
+    assert 0 < plain.sum() < valid.sum()
+
+
+def _chain_case():
+    n = 3 * nms.ITERS_PER_CHECK
+    x1 = np.arange(n, dtype=np.float32) * 7.0
+    chain = np.stack([x1, np.zeros(n), x1 + 10.0, np.full(n, 10.0)], -1).astype(np.float32)
+    rng = np.random.default_rng(4)
+    boxes = np.stack([chain, _clustered_boxes(rng, 1, n)[0]])
+    scores = np.stack([np.linspace(1.0, 0.5, n), rng.uniform(0, 1, n)]).astype(np.float32)
+    return boxes, scores, np.ones((2, n), bool), 0.1
+
+
+@pytest.mark.parametrize("case", ["chain", "clustered_int_rects", "clustered_float",
+                                  "edge_sweep"])
+def test_nms_custom_op_in_an_exported_program_equals_eager(case):
+    """torch.export traces nms_fixed with the NMS as one custom-op node
+    (no data-dependent Python); the program gives eager nms_fixed's
+    outputs, the chain of tests above included."""
+    rng = np.random.default_rng(9)
+    int_rects = case != "clustered_float"
+    if case == "chain":
+        boxes, scores, valid, thr = _chain_case()
+    elif case == "edge_sweep":
+        from chip_smoke import nms_edge_boxes
+
+        boxes = nms_edge_boxes(rng, 2, 128, True)
+        scores = np.tile(np.linspace(1, 0, 128, dtype=np.float32), (2, 1))
+        valid, thr = rng.uniform(0, 1, (2, 128)) > 0.2, 0.4
+    else:
+        boxes = _clustered_boxes(rng, 3, 96)
+        scores = rng.uniform(0, 1, (3, 96)).astype(np.float32)
+        valid, thr = rng.uniform(0, 1, (3, 96)) > 0.2, 0.4
+
+    class Step(torch.nn.Module):
+        def forward(self, b, s, v):
+            return nms.nms_fixed(b, s, thr, v, False, int_rects)
+
+    args = (_t(boxes), _t(scores), _t(valid))
+    ep = torch.export.export(Step(), args, strict=False)
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert targets.count("frt.nms_greedy.default") == 1, targets
+    for g, w in zip(ep.module()(*args), nms.nms_fixed(*args[:2], thr, args[2], False,
+                                                      int_rects)):
+        assert torch.equal(g, w)
+    assert 0 < int(ep.module()(*args)[2].sum()) < valid.sum()
+
+
+@pytest.mark.parametrize("case", ["box_shape", "valid_dtype", "valid_shape"])
+def test_nms_greedy_rejects_bad_inputs(case):
+    from facerecognizeonnx_tpu_torch.errors import InvalidInputError
+
+    boxes, valid = torch.zeros((2, 8, 4)), torch.ones((2, 8), dtype=torch.bool)
+    if case == "box_shape":
+        boxes = torch.zeros((2, 8, 5))
+    elif case == "valid_dtype":
+        valid = valid.to(torch.uint8)
+    else:
+        valid = valid[:, :7]
+    with pytest.raises(InvalidInputError):
+        nms.nms_greedy(boxes, valid, 0.4)

@@ -50,6 +50,8 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.pipeline.app",
     "facerecognizeonnx_tpu_torch.pipeline.client",
     "facerecognizeonnx_tpu_torch.pipeline.server",
+    "facerecognizeonnx_tpu_torch.pipeline.aot",
+    "facerecognizeonnx_tpu_torch.utils.debug",
     "facerecognizeonnx_tpu_torch.utils.draw",
     "facerecognizeonnx_tpu_torch.utils.realmodels",
     "facerecognizeonnx_tpu_torch.onnx_import",

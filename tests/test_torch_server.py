@@ -27,6 +27,7 @@ from chip_smoke import png_bytes
 from facerecognizeonnx_tpu.match.gallery import GalleryBank as JaxBank
 from facerecognizeonnx_tpu.pipeline.server import make_server as jax_make_server
 from facerecognizeonnx_tpu_torch import IdentifyClient, make_server
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.pipeline.client import ServiceError
 from facerecognizeonnx_tpu_torch.pipeline.server import _Handler
@@ -211,10 +212,11 @@ def test_identify_payloads_match_jax(world):
 
 def test_make_server_defaults_and_unported_options(world, monkeypatch):
     ((det, rec), _), _ = world
-    for kw, item in ((dict(sharded=True), "item 16"), (dict(mesh=2), "item 16"),
-                     (dict(aot="x.frtz"), "item 18b")):
+    for kw, item in ((dict(sharded=True), "item 16"), (dict(mesh=2), "item 16")):
         with pytest.raises(NotImplementedError, match=item):
             make_server(det, rec, GalleryBank(device="cpu"), port=0, device="cpu", **kw)
+    with pytest.raises(ModelLoadError, match="not found"):  # aot is ported: a path is loaded
+        make_server(det, rec, GalleryBank(device="cpu"), port=0, device="cpu", aot="x.frtz")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make_server(det, rec, GalleryBank(device="cpu"), port=0)

@@ -24,6 +24,7 @@ from facerecognizeonnx_tpu.pipeline.api import FaceRecognizer as JaxRecognizer
 from facerecognizeonnx_tpu.pipeline.enroll import enroll_batch as j_enroll_batch
 from facerecognizeonnx_tpu.pipeline.service import IdentifyService as JaxService
 from facerecognizeonnx_tpu.utils import checkpoint as j_checkpoint
+from facerecognizeonnx_tpu_torch.errors import ModelLoadError
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.pipeline.api import FaceDetector, FaceRecognizer
 from facerecognizeonnx_tpu_torch.pipeline.enroll import detect_align_crops, enroll_batch
@@ -196,10 +197,13 @@ def test_bank_growth_between_dispatch_and_resolve(world, enrolled, fuse):
 def test_service_rejects_unported_options(world, enrolled):
     (det, rec), _, _, _ = world
     pb, _ = _banks(enrolled)
-    for kw in (dict(sharded=True), dict(mesh=2), dict(aot="bundle.frtz")):
+    for kw in (dict(sharded=True), dict(mesh=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             IdentifyService(det.params, rec.params, pb, dataclasses.replace(CFG), device="cpu",
                             **kw)
+    with pytest.raises(ModelLoadError, match="not found"):  # aot is ported: a path is loaded
+        IdentifyService(det.params, rec.params, pb, dataclasses.replace(CFG), device="cpu",
+                        aot="bundle.frtz")
 
 
 def _camera_frames():
