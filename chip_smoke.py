@@ -183,8 +183,34 @@ Phases (any failure exits non-zero; there is no CPU path):
      (masks, boxes and top names equal outside near-ties); (d) `serve
      --aot out.frtz` in its own process answers /identify as the bundle
      does in process, and exits 0 on SIGTERM
- 16. one JSON line of the kernels, the nvidia-smi line, and last
-     {"ok": true, "device": {...}}
+ 16. the parallel layer (`parallel/`, `phase_parallel`) over a real NCCL
+     group of one rank: (a) `init_distributed` from COORDINATOR_ADDRESS
+     (a free localhost port), NUM_PROCESSES=1 and PROCESS_ID=0, backend
+     nccl and world size 1 asserted; (b) `sharded_topk_search` at Q=128,
+     G=100,003 (1,000 planted duplicate rows), D=512, k=5 against
+     `gallery_topk_reference` and `GalleryBank.search` "dense" and "cuda":
+     sims within 1.67e-6 (the kernel's bar), indices equal outside
+     near-ties; `search(sharded=True)` names equal; times beside the
+     dense and kernel searches; (c) `make_dp_program` on phase 5's models,
+     frames and gallery, with and without search_top_k: every output
+     bit-equal to the eager `frames_to_features` / `frames_to_matches`;
+     one warp_xm, one pyramid and one nms_greedy launch per call (the
+     Python counters, and the device counters over N_DP_CALLS calls); dp
+     and eager steps in turns, median of 10 with min-max; (d)
+     `sharded_batch_embed` bit-equal to `embed_crops` on 64 IResNet-50
+     crops (bf16), `tp_embed_crops` within rtol 1e-4 / atol 1e-5 in
+     float32 with TF32 off; (e) `ep_embed_crops` with two seeded
+     IResNet-50 experts in float32 (TF32 off): every routed face within
+     1e-5 of its expert alone, one case overflowing and finished by
+     rerun; (f) `IdentifyService(mesh=1, sharded=True)` against the
+     plain service on 16 requests: top-1 names equal, sims within 1e-5;
+     (g) one line: the pipeline stage is held on the CPU only (its stage
+     axis is 2, and NCCL refuses two ranks on one GPU); the group is
+     destroyed at the end
+ 17. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
+     nms_greedy also give `dp_launches`, their launches in one call of
+     the dp step), the nvidia-smi line, and last {"ok": true, "device":
+     {...}}
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; launches made to compare a kernel with its plain
@@ -2541,6 +2567,195 @@ def phase_aot(dev, frames, det_tree, rec_tree, det, rec, cfg=None, cli_args=()):
         f"SIGTERM -> exit 0 | phase {time.perf_counter() - t_phase:.1f} s")
 
 
+PARALLEL_SEARCH_BAR = 1.67e-6  # the gallery kernel's sims bar at these shapes
+N_DP_CALLS = 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _timed_in_turns(fns: dict, rounds=10) -> dict:
+    """Host clock around synchronized calls, the callables in turns:
+    name → (median, min, max) ms."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
+
+
+def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
+    """The parallel layer on one card over a real NCCL group (module
+    docstring, phase 16). Returns the launches counted on the dp path."""
+    import torch.distributed as dist
+
+    from facerecognizeonnx_tpu_torch.parallel import mesh as pmesh
+    from facerecognizeonnx_tpu_torch.parallel.distributed import init_distributed
+    from facerecognizeonnx_tpu_torch.parallel.expert_parallel import ep_embed_crops
+    from facerecognizeonnx_tpu_torch.parallel.sharded_ops import (
+        make_dp_program,
+        sharded_batch_embed,
+        sharded_topk_search,
+    )
+    from facerecognizeonnx_tpu_torch.parallel.tensor_parallel import tp_embed_crops
+
+    # ---- (a) a real NCCL group of one rank, through the launcher variables
+    os.environ.update(COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}", NUM_PROCESSES="1",
+                      PROCESS_ID="0")
+    init_distributed(device="cuda")
+    backend, world = dist.get_backend(), dist.get_world_size()
+    assert backend == "nccl" and world == 1, (backend, world)
+    data = pmesh.make_mesh(("data",), device="cuda")
+    model = pmesh.make_mesh(("model",), device="cuda")
+    assert pmesh.mesh_device(data) == dev
+    log(f"parallel: process group backend {backend}, world size {world}, rank device "
+        f"{pmesh.mesh_device(data)} (init_distributed from COORDINATOR_ADDRESS / "
+        f"NUM_PROCESSES=1 / PROCESS_ID=0)")
+
+    # ---- (b) the sharded search against the bank's dense and kernel searches
+    gen = torch.Generator(device=dev).manual_seed(12)
+    Q, G, D, k = 128, 100_003, 512, 5
+    q, g = _gallery(gen, Q, G, D, dev, dups=1_000)
+    sbank = GalleryBank(device=dev)
+    sbank.add_batch([str(i) for i in range(G)], g.cpu().numpy())
+    sv, si = sharded_topk_search(q, g, k, mesh=model)
+    rv, ri = gallery_cuda.gallery_topk_reference(q, g, k + 1)
+    err, ties = check_topk(sv, si, rv[:, :k], ri[:, :k], rv[:, k], bar=PARALLEL_SEARCH_BAR)
+    qn = q.cpu().numpy()
+    for method, sharded in (("dense", False), ("cuda", False), ("dense", True)):
+        names, sims = sbank.search(qn, k, method=method, sharded=sharded)
+        bi = torch.tensor([[int(n) for n in row] for row in names], device=dev)
+        e2, _ = check_topk(sv, si, torch.from_numpy(sims).to(dev), bi, rv[:, k],
+                           bar=PARALLEL_SEARCH_BAR)
+        err = max(err, e2)
+    search_ms, dense_ms, kernel_ms = in_turns(
+        eager_timer(lambda: sharded_topk_search(q, g, k, mesh=model)),
+        eager_timer(lambda: gallery_cuda.gallery_topk_reference(q, g, k)),
+        eager_timer(lambda: gallery_cuda.gallery_topk_cuda(q, g, k)),
+    )
+    log(f"sharded_topk_search (Q={Q}, G={G:,}, D={D}, k={k}, NCCL all-gather over 1 rank) vs "
+        f"GalleryBank.search dense and cuda and gallery_topk_reference: sims max|d| {err:.3g} "
+        f"(bar {PARALLEL_SEARCH_BAR:g}), indices equal outside near-ties ({ties} exact ties, "
+        f"ascending index), search(sharded=True) the same; eager between CUDA events "
+        f"(median of 20, in turns): sharded {search_ms:.4f} ms | dense {dense_ms:.4f} ms | "
+        f"kernel {kernel_ms:.4f} ms")
+
+    # ---- (c) the dp step at full width, with and without the fused search
+    program, _ = make_dp_program(det, rec, cfg, mesh=data, max_faces_embed=K)
+    matches, _ = make_dp_program(det, rec, cfg, mesh=data, max_faces_embed=K,
+                                 search_top_k=top_k)
+    with torch.no_grad():
+        reset_counts()
+        dets, feats = program(frames)
+        torch.cuda.synchronize()
+        dp_counts = read_counts()
+        e_dets, e_feats = frames_to_features(det, rec, frames, cfg, K)
+        m_out = matches(frames, bank, n_rows)
+        e_out = frames_to_matches(det, rec, frames, bank, n_rows, cfg, K, top_k)
+        for got, want in ((tuple(dets) + (feats,), tuple(e_dets) + (e_feats,)),
+                          (tuple(m_out[0]) + m_out[1:], tuple(e_out[0]) + e_out[1:])):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), "the dp step differs from the eager step"
+        assert all(dp_counts[n] == 1 for n in ("warp_xm", "warp_xm_pyramid", "nms_greedy")), \
+            dp_counts
+        before = (nms.device_launches(), *warp_cuda.device_launches())
+        for _ in range(N_DP_CALLS):
+            program(frames)
+        after = (nms.device_launches(), *warp_cuda.device_launches())
+        moved = [a - b for a, b in zip(after, before)]
+        assert moved == [N_DP_CALLS] * 3, f"device launches over {N_DP_CALLS} dp calls: {moved}"
+        stats = _timed_in_turns({
+            "dp": lambda: program(frames),
+            "eager": lambda: frames_to_features(det, rec, frames, cfg, K),
+            "dp_search": lambda: matches(frames, bank, n_rows),
+            "eager_search": lambda: frames_to_matches(det, rec, frames, bank, n_rows, cfg, K,
+                                                      top_k),
+        })
+    check_features(feats, dets.valid[:, :K])
+    fmt = {n: f"{m:.3f} ms ({lo:.3f}-{hi:.3f})" for n, (m, lo, hi) in stats.items()}
+    log(f"dp step (make_dp_program over the 1-rank NCCL 'data' mesh, SCRFD-500m 640 + "
+        f"IResNet-50 folded, bf16, B={frames.shape[0]}, K={K}): dets, features (and sims, "
+        f"indices with search_top_k={top_k}) bit-equal to the eager step; launches in one "
+        f"call {dp_counts}; device counters moved {moved} over {N_DP_CALLS} calls "
+        f"(nms, pyramid, warp_xm); median of 10 with min-max, in turns: dp {fmt['dp']} | "
+        f"eager {fmt['eager']} | dp+search {fmt['dp_search']} | eager+search "
+        f"{fmt['eager_search']}")
+
+    # ---- (d) sharded_batch_embed and tp_embed_crops on one rank, B=64
+    crops = torch.from_numpy(rng.integers(0, 256, (64, 112, 112, 3), dtype=np.uint8)).to(dev)
+    with torch.no_grad():
+        got = sharded_batch_embed(rec, crops, cfg, mesh=data)
+        assert torch.equal(got, embed_crops(rec, crops, cfg)), "sharded_batch_embed differs"
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        with tf32_off():
+            tp = tp_embed_crops(rec, crops, cfg32, mesh=model)
+            want32 = embed_crops(rec, crops, cfg32)
+    torch.testing.assert_close(tp, want32, rtol=1e-4, atol=1e-5)
+    tp_err = float((tp - want32).abs().max())
+    log(f"sharded_batch_embed (64 IResNet-50 crops, bf16) bit-equal to embed_crops; "
+        f"tp_embed_crops (float32, TF32 off, 1-rank 'model' axis) max|d| {tp_err:.3g} "
+        f"(bar rtol 1e-4 / atol 1e-5)")
+
+    # ---- (e) two seeded IResNet-50 experts on the one-rank expert mesh
+    experts = [bridge.init_params_numpy("iresnet50", seed=s) for s in (7, 8)]
+    ecrops = crops[:16].cpu().numpy()
+    expert = pmesh.make_mesh(("expert",), device="cuda")
+    with torch.no_grad(), tf32_off():
+        alone = torch.stack([embed_crops(bridge.params_from_numpy(t, dev),
+                                         torch.from_numpy(ecrops).to(dev), cfg32)
+                             for t in experts]).cpu().numpy()
+        ep_err = 0.0
+        for ids, cf in (([0, 1] * 8, 2.0), ([0] * 16, 1.0)):  # the second overflows
+            ep_feats, routed = ep_embed_crops(experts, np.asarray(ids), ecrops, cfg32,
+                                              mesh=expert, capacity_factor=cf)
+            assert routed.all()
+            want = alone[np.asarray(ids), np.arange(16)]
+            ep_err = max(ep_err, float(np.abs(ep_feats - want).max()))
+    assert ep_err <= 1e-5, ep_err
+    log(f"ep_embed_crops (2 seeded IResNet-50 experts, 16 crops, float32 TF32 off, 1-rank "
+        f"expert mesh; alternating ids at capacity_factor 2, then all on expert 0 at 1.0, "
+        f"which overflows and finishes by rerun): every face routed, max|d| vs its expert "
+        f"alone {ep_err:.3g} (bar 1e-5)")
+
+    # ---- (f) IdentifyService(mesh=1, sharded=True) vs the plain service
+    gallery = GalleryBank(device=dev)
+    gallery.add_batch([f"id{i}" for i in range(n_rows)], bank[:n_rows].cpu().numpy())
+    requests = [frames[i % frames.shape[0]].cpu().numpy() for i in range(16)]
+    svc = {name: IdentifyService(det, rec, gallery, cfg, max_batch=8, max_faces=K,
+                                 device=dev, **kw)
+           for name, kw in (("mesh", dict(mesh=1, sharded=True)), ("plain", {}))}
+    try:
+        res = {name: [s.identify(im, top_k=top_k) for im in requests]
+               for name, s in svc.items()}
+    finally:
+        for s in svc.values():
+            s.close()
+    same = sum(a.names == b.names for a, b in zip(res["mesh"], res["plain"]))
+    for a, b in zip(res["mesh"], res["plain"]):
+        assert np.array_equal(a.valid, b.valid) and a.valid.any()
+        assert [n[:1] for n in a.names] == [n[:1] for n in b.names], "top-1 names differ"
+        assert np.abs(a.sims - b.sims).max() <= 1e-5
+    log(f"IdentifyService(mesh=1, sharded=True) vs the plain service, 16 requests one at a "
+        f"time: top-1 names equal on every face, {same}/16 identical name lists, sims within "
+        f"1e-5")
+
+    # ---- (g) the pipeline stage
+    log("pipelined_frames_to_features: its stage axis must be 2 and NCCL refuses two ranks "
+        "on one GPU, so it is held on the CPU only (tests/test_torch_pipeline_stage.py, "
+        "4 Gloo ranks)")
+    dist.destroy_process_group()
+    return {n: dp_counts[n] for n in ("warp_xm", "warp_xm_pyramid", "nms_greedy")}
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2735,19 +2950,24 @@ def main() -> int:
     phase(15)
     phase_aot(dev, frames, det_tree, rec_tree, det, rec)
 
-    # ---- 16. result lines
+    # ---- 16. the parallel layer over a real NCCL group
     phase(16)
+    dp_launches = phase_parallel(dev, rng, frames, det, rec, bank, N_ROWS, K, TOP_K, cfg)
+
+    # ---- 17. result lines
+    phase(17)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm, with the "
                       "face table of _warp_affine_pallas_xm, :422-492)",
-             launches=main_launches, **xm),
+             launches=main_launches, dp_launches=dp_launches["warp_xm"], **xm),
         dict(name="warp_xm_pyramid", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:249 (build_pyramid_xm, the "
                       "prologue of _warp_affine_pallas_xm)",
-             launches=main_counts["warp_xm_pyramid"], **pyramid),
+             launches=main_counts["warp_xm_pyramid"],
+             dp_launches=dp_launches["warp_xm_pyramid"], **pyramid),
         dict(name="warp_ym", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_ym.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:101 (_kernel)", **ym),
@@ -2758,7 +2978,8 @@ def main() -> int:
              source="facerecognizeonnx_tpu_torch/csrc/nms_greedy.cu",
              replaces="facerecognizeonnx_tpu/ops/nms.py:100-112 (nms_fixed's lax.while_loop; "
                       "no Pallas kernel)",
-             launches=main_counts["nms_greedy"], **nms_entry),
+             launches=main_counts["nms_greedy"], dp_launches=dp_launches["nms_greedy"],
+             **nms_entry),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

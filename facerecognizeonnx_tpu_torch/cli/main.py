@@ -23,9 +23,13 @@ Weights: `.npz` or `.onnx` (--det-model / --rec-model, or a --pack whose
 files are in --model-dir), seeded random weights otherwise. Every mode
 runs on the CUDA card unless `--cpu` is given; without a card and
 without `--cpu` the CLI prints why and returns non-zero. `serve --aot
-b.frtz` answers /identify from a bundle. Not ported yet, and raising
-NotImplementedError that names its ROADMAP.md item: the modes bench,
-train and eval, and the options --experts, --sharded and --dp.
+b.frtz` answers /identify from a bundle; `enroll --experts a.npz,b.npz`
+routes each face to a specialist recognizer by yaw, `identify/serve
+--sharded` spread the gallery rows over the ranks of the process group,
+and `serve --dp N` serves data-parallel over its first N ranks (clamped
+to the group's size: one process drives one device). Not ported yet,
+and raising NotImplementedError that names its ROADMAP.md item: the
+modes bench, train and eval.
 
 Headless by default: annotated images are written next to the input
 (`<name>_out.jpg`, which needs cv2 or PIL to encode); `--show` opens
@@ -53,13 +57,7 @@ from facerecognizeonnx_tpu_torch.utils.draw import draw_face_info
 UNPORTED_MODES = {
     "bench": "the bench harness is not ported (ROADMAP.md, the note at Queue A item 8)",
     "train": "training is not ported yet (ROADMAP.md Queue A item 17)",
-    "eval": "evaluation is not ported yet (ROADMAP.md Queue A item 17, with item 16's "
-            "sharded_batch_embed)",
-}
-UNPORTED_OPTIONS = {
-    "experts": "expert-parallel enrollment is not ported yet (ROADMAP.md Queue A item 16)",
-    "sharded": "sharded galleries are not ported yet (ROADMAP.md Queue A item 16)",
-    "dp": "data-parallel serving is not ported yet (ROADMAP.md Queue A item 16)",
+    "eval": "evaluation is not ported yet (ROADMAP.md Queue A item 17)",
 }
 
 
@@ -387,8 +385,19 @@ def mode_enroll(args):
             continue
         names.append(os.path.splitext(os.path.basename(path))[0])
         images.append(image)
+    experts = None
+    if args.experts:
+        experts = []
+        for path in args.experts.split(","):
+            path = path.strip()
+            r = FaceRecognizer(recognizer.cfg, device=args.device)
+            if not r.load_model(path):
+                print(f"专家识别器加载失败: {path}")
+                sys.exit(-1)
+            experts.append(r.params)
+        print(f"专家并行注册: {len(experts)} 个识别器, 按姿态路由 (route_by_yaw)")
     bank, enrolled = enroll_batch(detector, recognizer, names, images, bank=bank,
-                                  device=args.device)
+                                  experts=experts, device=args.device)
     bank.save(args.gallery)
     print(f"已注册 {len(enrolled)}/{len(paths)} 张人脸 → {args.gallery} (共 {len(bank)} 条)")
     return {
@@ -397,7 +406,7 @@ def mode_enroll(args):
         "requested": len(paths),
         "gallery": args.gallery,
         "gallery_size": len(bank),
-        "experts": 0,
+        "experts": len(experts) if experts else 0,
     }
 
 
@@ -439,7 +448,8 @@ def mode_identify(args):
         if len(images) == 1:
             result["faces"] = []  # keep the single-probe JSON contract
         return result
-    names, sims = bank.search(np.concatenate(flat_feats, axis=0), top_k=min(5, len(bank)))
+    names, sims = bank.search(np.concatenate(flat_feats, axis=0), top_k=min(5, len(bank)),
+                              sharded=args.sharded)
     face_no = {}
     for (img_i, face), nrow, srow in zip(owners, names, sims):
         best = nrow[0] if srow[0] > 0.6 else "Unknown"
@@ -473,13 +483,29 @@ def mode_serve(args):
 
     bank = (GalleryBank.load(args.gallery, device=args.device) if os.path.exists(args.gallery)
             else GalleryBank(device=args.device))
+    dp = args.dp or 0
+    if dp != 0:
+        import torch.distributed as dist
+
+        # one process drives one device: the ranks of its process group
+        n_local = dist.get_world_size() if dist.is_initialized() else 1
+        want = n_local if dp == -1 else dp
+        # the service meshes over ranks[:dp]; clamp so the startup line
+        # reports the mesh actually built (one card asked for --dp 8
+        # serves fine, on one device)
+        dp = min(want, n_local)
+        if dp < want:
+            print(f"--dp {want} 请求, 本机只有 {n_local} 设备 → dp={dp}")
     server = make_server(
         detector, recognizer, bank, host=args.host, port=args.port,
-        auth_token=args.auth_token, aot=args.aot, fuse_search=args.fuse_search,
+        auth_token=args.auth_token, sharded=args.sharded, aot=args.aot,
+        mesh=dp if dp > 1 else None, fuse_search=args.fuse_search,
         adaptive_embed=args.adaptive_embed, device=args.device,
     )
     if args.aot:
         print(f"identify 热路径使用 AOT 程序包: {args.aot}")
+    if dp > 1:
+        print(f"identify 数据并行: {dp} 设备")
     if args.fuse_search:
         print("identify 单次调度: gallery top-k 已融合进设备程序")
     if args.adaptive_embed:
@@ -734,11 +760,12 @@ def main(argv=None):
     parser.add_argument("--model-dir", default="models",
                         help="pack directory holding det_*.onnx / w600k_*.onnx")
     parser.add_argument("--sharded", action="store_true",
-                        help="identify/serve: shard the gallery (not ported yet)")
+                        help="identify/serve: shard the gallery rows over the ranks")
     parser.add_argument("--aot", default=None,
                         help="serve: answer /identify from a .frtz AOT bundle (export out.frtz)")
     parser.add_argument("--dp", type=int, default=0,
-                        help="serve: data-parallel device count (not ported yet)")
+                        help="serve: data-parallel rank count (-1 = every rank of the "
+                        "process group; clamped to its size)")
     parser.add_argument(
         "--fuse-search",
         action="store_true",
@@ -746,7 +773,7 @@ def main(argv=None):
         "step (requests asking for more than 5 matches take the host-side search)",
     )
     parser.add_argument("--experts", default=None, metavar="W1,W2,...",
-                        help="enroll: expert recognizers routed by yaw (not ported yet)")
+                        help="enroll: expert recognizers routed by yaw")
     parser.add_argument(
         "--adaptive-embed",
         action="store_true",
@@ -820,9 +847,6 @@ def main(argv=None):
 def _run(args):
     if args.mode in UNPORTED_MODES:
         raise NotImplementedError(f"{args.mode}: {UNPORTED_MODES[args.mode]}")
-    for opt, why in UNPORTED_OPTIONS.items():
-        if getattr(args, opt):
-            raise NotImplementedError(f"--{opt}: {why}")
     if args.det_size and args.det_size % 32:
         # strides go to 32: the head grids are input_size//stride and must
         # tile the conv pyramid exactly

@@ -180,8 +180,11 @@ class GalleryBank:
         method: "auto" | "dense" | "tiled" | "cuda" (module docstring).
         storage_dtype (dense only, e.g. torch.bfloat16) searches a copy
         of the bank kept at that type — a capacity option; the products
-        and sums stay float32. sharded=True (rows spread over devices)
-        is not ported yet (ROADMAP.md Queue A item 16)."""
+        and sums stay float32. sharded=True spreads the rows over the
+        ranks of the default "model" mesh on the bank's device
+        (`parallel.sharded_ops.sharded_topk_search`; every rank of the
+        process group makes the same call); on one process it starts a
+        one-rank group."""
         return self._search(self._store, queries, top_k, sharded, method, storage_dtype)
 
     def _search(self, store, queries, top_k, sharded=False, method="auto",
@@ -193,10 +196,6 @@ class GalleryBank:
             )
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-        if sharded:
-            raise NotImplementedError(
-                "sharded gallery search is not ported yet (ROADMAP.md Queue A item 16)"
-            )
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
@@ -213,7 +212,14 @@ class GalleryBank:
             method == "auto" and auto_uses_kernel(len(queries), len(store.names), self.device)
         )
         with torch.no_grad():
-            if use_kernel:
+            if sharded:
+                from facerecognizeonnx_tpu_torch.parallel.sharded_ops import (
+                    sharded_topk_search,
+                )
+
+                s, i = sharded_topk_search(q, self._device_feats(store=store), top_k,
+                                           device=self.device)
+            elif use_kernel:
                 s, i = gallery_topk_cuda(q, self._device_feats(store=store), top_k)
             elif method == "tiled":
                 if top_k > MAX_K:

@@ -1,6 +1,6 @@
 """Occupancy-adaptive bucketed embedding (the low-occupancy production path).
 
-Port of `facerecognizeonnx_tpu/pipeline/bucketed.py` for one device. The
+Port of `facerecognizeonnx_tpu/pipeline/bucketed.py`. The
 fused path (`pipeline/fused.py`) embeds all K face slots of every frame
 whether or not a face holds them; this path splits it at its seam:
 
@@ -20,8 +20,15 @@ A guess that falls short is corrected exactly by running program B again
 at the right bucket. Buckets are powers of two from MIN_BUCKET up.
 
 Nothing in `start()` waits for the host: on the card the NMS is a kernel
-(csrc/nms_greedy.cu). The mesh form of the reference (`mesh=`) is
-ROADMAP.md Queue A item 16.
+(csrc/nms_greedy.cu).
+
+With `mesh` both programs run on each rank's block of the batch over
+the mesh's `mesh_axis` (every rank makes the same calls with the global
+frames): each rank compacts and embeds its own frames' crops, the
+per-frame counts are all-gathered in `start()` so every rank sizes the
+bucket by the most occupied rank, and `finish()` all-gathers the
+results into the global batch. The models are placed on the rank's
+device once; the gallery bank of the fused search is replicated.
 
 Buckets are static batch sizes, and cuDNN and cuBLAS pick their kernels
 per shape, so in bfloat16 the bucketed features differ from the dense
@@ -48,7 +55,6 @@ from facerecognizeonnx_tpu_torch.pipeline.fused import detect_topk
 from facerecognizeonnx_tpu_torch.types import Detections
 
 MIN_BUCKET = 32  # the smallest embed batch worth its own shape
-UNPORTED_MESH = "the mesh form of the bucketed embed is not ported yet (ROADMAP.md Queue A item 16)"
 
 
 def detect_and_compact(
@@ -188,11 +194,27 @@ class BucketedEmbedPipeline:
         compute_dtype: Optional[torch.dtype] = None,
         search_top_k: Optional[int] = None,
         mesh=None,
+        mesh_axis: str = "data",
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(UNPORTED_MESH)
-        self.device = resolve_device(device)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self._n_shards = 1
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from facerecognizeonnx_tpu_torch.parallel.mesh import (
+                axis_size,
+                in_mesh,
+                mesh_device,
+            )
+            from facerecognizeonnx_tpu_torch.parallel.sharded_ops import module_on
+
+            if not in_mesh(mesh):
+                raise ValueError("the mesh form of the bucketed embed runs on the mesh's ranks")
+            self._n_shards = axis_size(mesh, mesh_axis)
+            self.device = mesh_device(mesh)
+            det_model, arc_model = module_on(det_model, self.device), module_on(
+                arc_model, self.device)
         self.det, self.arc = det_model, arc_model
         self.cfg = cfg
         self.k = max_faces_embed
@@ -245,11 +267,17 @@ class BucketedEmbedPipeline:
                 "bank_padded AND n_rows must be passed exactly when the "
                 "pipeline was built with search_top_k"
             )
+        if self.mesh is not None:
+            from facerecognizeonnx_tpu_torch.parallel.mesh import block, gather_rows
+
+            frames_u8 = block(torch.as_tensor(frames_u8), self.mesh, self.mesh_axis)
         with torch.no_grad():
             dets, crops_c, perm, valid_flat, counts = detect_and_compact(
                 self.det, frames_u8.to(self.device), self.cfg, self.k, self.compute_dtype,
                 self.valid_cap,
             )
+        if self.mesh is not None:  # every rank sizes the bucket from all counts
+            counts = gather_rows(counts, self.mesh, self.mesh_axis)
         if counts.is_cuda:
             host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
             host.copy_(counts, non_blocking=True)
@@ -258,15 +286,16 @@ class BucketedEmbedPipeline:
         else:
             host, ready = counts, None
         b = counts.shape[0]
-        total = b * self.k
+        local_b = b // self._n_shards
+        total = local_b * self.k
         n_frames = b if n_frames is None else n_frames
         # guess from the previous step's occupancy of real frames (the
         # first step guesses full occupancy)
         if self._last_rate is None:
             guess = self._pick(total, total)
         else:
-            guess = self._pick(int(math.ceil(self._last_rate * b)), total)
-        bank = None if self.search_top_k is None else (bank_padded, n_rows)
+            guess = self._pick(int(math.ceil(self._last_rate * local_b)), total)
+        bank = None if self.search_top_k is None else (bank_padded.to(self.device), n_rows)
         ops = (crops_c, perm, valid_flat)
         feats, matches = self._embed(guess, ops, bank) if guess > 0 else (None, None)
         return _Pending(dets, host, ready, feats, matches, guess, n_frames, bank, ops)
@@ -279,12 +308,15 @@ class BucketedEmbedPipeline:
             pend.ready.synchronize()
         real = pend.counts.numpy().astype(np.int64)
         b = real.shape[0]
-        total = b * self.k
+        local_b = b // self._n_shards
+        total = local_b * self.k
         real[pend.n_frames:] = 0  # pad frames do not count
         n = int(real.sum())
         self.steps += 1
         self._last_rate = n / max(1, pend.n_frames)
-        need = self._pick(n, total)
+        # each rank embeds its own first `bucket` compacted crops, so the
+        # bucket covers the most occupied rank's real crops
+        need = self._pick(int(real.reshape(self._n_shards, local_b).sum(axis=1).max()), total)
         feats, matches = pend.feats, pend.matches
         if need > pend.guess:  # the guess fell short: run program B again
             if pend.guess > 0:
@@ -295,14 +327,23 @@ class BucketedEmbedPipeline:
             self.last_bucket = max(need, pend.guess) if pend.guess else need
         if feats is None:  # no faces anywhere: nothing was embedded
             dev = pend.ops[0].device
-            feats = torch.zeros((b, self.k, self.cfg.feature_dim), device=dev)
+            feats = torch.zeros((local_b, self.k, self.cfg.feature_dim), device=dev)
             if pend.bank is not None:
-                shape = (b, self.k, self.search_top_k)
+                shape = (local_b, self.k, self.search_top_k)
                 matches = (torch.zeros(shape, device=dev),
                            torch.zeros(shape, dtype=torch.int32, device=dev))
+        dets = pend.dets
+        if self.mesh is not None:  # the global batch on every rank
+            from facerecognizeonnx_tpu_torch.parallel.mesh import gather_rows
+
+            def join(t):
+                return gather_rows(t, self.mesh, self.mesh_axis)
+
+            dets, feats = Detections(*(join(t) for t in dets)), join(feats)
+            matches = None if matches is None else tuple(join(t) for t in matches)
         if pend.bank is not None:
-            return pend.dets, feats, matches[0], matches[1], n
-        return pend.dets, feats, n
+            return dets, feats, matches[0], matches[1], n
+        return dets, feats, n
 
     def __call__(self, frames_u8, bank_padded=None, n_rows=None):
         return self.finish(self.start(frames_u8, bank_padded=bank_padded, n_rows=n_rows))

@@ -1,6 +1,6 @@
 """Batched gallery enrollment.
 
-Port of `facerecognizeonnx_tpu/pipeline/enroll.py` (single device): each
+Port of `facerecognizeonnx_tpu/pipeline/enroll.py`: each
 image's best face is detected and aligned per shape bucket (one batched
 letterbox → detect and one batched align per distinct image shape, on
 the ORIGINAL-resolution frames), and every kept crop is embedded in ONE
@@ -8,9 +8,12 @@ the ORIGINAL-resolution frames), and every kept crop is embedded in ONE
 before the embed, as the reference package does; that truncation is
 part of the enrolled features.
 
-Not ported yet, and raising NotImplementedError: `mesh` (data-parallel
-embed) and `experts` (expert-parallel specialist routing), ROADMAP.md
-Queue A item 16.
+With `mesh` the embed is data-parallel over the mesh's "data" axis
+(`parallel.sharded_ops.sharded_batch_embed`); with `experts` each crop
+is routed to one specialist recognizer by `expert_router` (default
+`route_by_yaw` on the detected landmarks) and embedded by it through
+`parallel.expert_parallel.ep_embed_crops`. Every rank of the process
+group makes the same call in both forms.
 """
 
 from __future__ import annotations
@@ -25,11 +28,6 @@ from facerecognizeonnx_tpu_torch.detect.pipeline import detect_batch_program
 from facerecognizeonnx_tpu_torch.embed.pipeline import align_faces_batch, embed_crops
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.ops.image import letterbox
-
-UNPORTED_PARALLEL = (
-    "mesh / expert-parallel enrollment is not ported yet (ROADMAP.md Queue A item 16)"
-)
-
 
 def _bucket_detect_align(detector, names, images, cfg, device):
     """Shape-bucketed batched detect + batched align of each image's best
@@ -88,18 +86,44 @@ def enroll_batch(
     `device` (where the detector's and recognizer's modules lie), and
     add the features to `bank` (a new bank on `device` when None).
     Returns (bank, enrolled_names): images with no detected face are
-    skipped, reported by omission."""
-    if mesh is not None or experts is not None or expert_router is not None:
-        raise NotImplementedError(UNPORTED_PARALLEL)
+    skipped, reported by omission.
+
+    mesh: embed data-parallel over its "data" axis. experts: E
+    same-architecture recognizers (modules or JAX-layout numpy trees),
+    each crop embedded by the one `expert_router(kps, E)` picks (default
+    `route_by_yaw`), over `mesh`'s "expert" axis or the default expert
+    mesh on `device`; `recognizer` is unused then. An id outside [0, E)
+    raises rather than enrolling a zero feature."""
     dev = resolve_device(device)
     cfg = cfg or detector.cfg
     bank = bank if bank is not None else GalleryBank(cfg.feature_dim, device=dev)
-    kept_names, crops, _ = _bucket_detect_align(detector, names, images, cfg, dev)
+    kept_names, crops, kept_kps = _bucket_detect_align(detector, names, images, cfg, dev)
     if not crops:
         return bank, []
-    with torch.no_grad():
-        feats = embed_crops(recognizer.params, torch.from_numpy(np.stack(crops)).to(dev), cfg)
-    bank.add_batch(kept_names, feats.cpu().numpy())
+    crops = np.stack(crops)
+    if experts is not None:
+        from facerecognizeonnx_tpu_torch.parallel.expert_parallel import (
+            ep_embed_crops,
+            route_by_yaw,
+        )
+
+        ids = np.asarray(torch.as_tensor((expert_router or route_by_yaw)(
+            np.stack(kept_kps), len(experts))).cpu())
+        feats, routed = ep_embed_crops(list(experts), ids, crops, cfg, mesh=mesh, device=dev)
+        if not routed.all():
+            raise ValueError(
+                f"expert router produced {int((~routed).sum())} unroutable ids "
+                f"(outside [0, {len(experts)}))"
+            )
+    elif mesh is not None:
+        from facerecognizeonnx_tpu_torch.parallel.sharded_ops import sharded_batch_embed
+
+        feats = sharded_batch_embed(recognizer.params, crops, cfg, mesh=mesh).cpu().numpy()
+    else:
+        with torch.no_grad():
+            feats = embed_crops(recognizer.params, torch.from_numpy(crops).to(dev),
+                                cfg).cpu().numpy()
+    bank.add_batch(kept_names, feats)
     return bank, kept_names
 
 

@@ -321,9 +321,10 @@ def make_server(
     adaptive_embed: the occupancy-adaptive bucketed embed (see
     IdentifyService). aot: a .frtz path or `AotPipeline` — /identify runs
     the loaded bundle (one CUDA-graph replay per micro-batch on the card)
-    while enrolls still go through detector / recognizer. sharded and mesh
-    are not ported yet and raise NotImplementedError (ROADMAP.md Queue A
-    item 16).
+    while enrolls still go through detector / recognizer. sharded spreads
+    the gallery rows of the search over the ranks' "model" mesh; mesh (a
+    mesh, or an int n for the first min(n, world) ranks) serves each
+    micro-batch data-parallel (see IdentifyService).
     """
     service = IdentifyService(
         detector.params, recognizer.params, bank, cfg=detector.cfg,

@@ -1,6 +1,6 @@
 """Micro-batching identification service.
 
-Port of `facerecognizeonnx_tpu/pipeline/service.py` (single device).
+Port of `facerecognizeonnx_tpu/pipeline/service.py`.
 Concurrent callers submit frames; a worker thread coalesces them into
 micro-batches (letterbox on the host, with the native runtime's
 `letterbox_native` where it builds, as the reference does → detect +
@@ -34,8 +34,18 @@ co-riders before dispatching a partial batch), max_faces (embed slots
 per frame), search_top_k (the fused program's width), valid_cap (a
 benchmark control, see `pipeline.fused.detect_topk`).
 
-Not ported yet, and raising NotImplementedError: sharded and mesh
-(ROADMAP.md Queue A item 16).
+Parallel serving (`parallel/`): `mesh` (a mesh, or an int n for the
+first min(n, world) ranks) runs each micro-batch data-parallel over the
+mesh's `mesh_axis` (`make_dp_program`, or the bucketed pipeline's mesh
+form with adaptive_embed); `sharded` spreads the gallery rows of the
+host-side search over the default "model" mesh. Every rank runs a
+service and submits the same requests in the same order. Then the
+service's collectives all run on its worker thread, and the workers
+agree on each micro-batch: one all-reduce over the ranks settles how
+many of the held requests it takes (the fewest any rank holds) and when
+every rank has closed, and each batch is resolved right after its
+dispatch. So every rank issues the same collectives in the same order,
+whatever the timing of its callers.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from facerecognizeonnx_tpu_torch.config import PipelineConfig, resolve_device
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
@@ -58,12 +69,6 @@ from facerecognizeonnx_tpu_torch.pipeline.aot import load_bundle
 from facerecognizeonnx_tpu_torch.pipeline.bucketed import BucketedEmbedPipeline
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_features, frames_to_matches
 from facerecognizeonnx_tpu_torch.types import Detections
-
-UNPORTED = {
-    "sharded": "sharded gallery rows (ROADMAP.md Queue A item 16)",
-    "mesh": "data-parallel serving over a mesh (ROADMAP.md Queue A item 16)",
-}
-
 
 @dataclass
 class IdentifyResult:
@@ -100,11 +105,19 @@ class IdentifyService:
         adaptive_embed: bool = False,
         valid_cap: Optional[int] = None,
         device="cuda",
+        mesh_axis: str = "data",
     ):
         """det_params / arc_params: the SCRFD and recognizer modules (e.g.
         `FaceDetector.params`, `FaceRecognizer.params`) on `device`; unused
         (may be None) with aot, whose bundle is loaded onto `device` when
-        given as a path."""
+        given as a path. With `mesh` the models are placed on the rank's
+        device of the mesh, and max_batch is rounded up to a multiple of
+        the axis size."""
+        if fuse_search and sharded:
+            raise ValueError(
+                "fuse_search composes with mesh dp, but not with sharded gallery rows "
+                "(those keep the two-dispatch path)"
+            )
         if fuse_search and aot is not None:
             raise ValueError(
                 "fuse_search does not compose with aot bundles (a bundle gives the "
@@ -120,14 +133,42 @@ class IdentifyService:
                 "adaptive_embed/valid_cap need the live programs; .frtz bundles bake "
                 "the dense step (serve without aot)"
             )
-        for name, value in (("sharded", sharded), ("mesh", mesh)):
-            if value:
-                raise NotImplementedError(f"{UNPORTED[name]} is not ported yet")
+        if mesh is not None and valid_cap is not None and not adaptive_embed:
+            raise ValueError(
+                "valid_cap (bench control) supports the single-device paths and "
+                "adaptive_embed only"
+            )
         if isinstance(aot, str):
             aot = load_bundle(aot, device=device)
         self.device = aot.device if aot is not None else resolve_device(device)
         if aot is not None:
             cfg, max_batch, max_faces = aot.config, aot.batch, aot.max_faces_embed
+        self.sharded = sharded
+        self.mesh = None
+        self._program = None
+        if mesh is not None or sharded:
+            from facerecognizeonnx_tpu_torch.parallel import mesh as pm
+            from facerecognizeonnx_tpu_torch.parallel.sharded_ops import make_dp_program
+
+            # every group is built here, in every rank's program order
+            pm.ensure_process_group(self.device)
+            if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+                n = min(int(mesh), dist.get_world_size())
+                mesh = pm.make_mesh((mesh_axis,), ranks=range(n), device=self.device)
+            if sharded:
+                pm.make_mesh(("model",), device=bank.device)
+            self._agree_group = pm.world_group(self.device.type)
+            if mesh is not None:
+                self.mesh = mesh
+                self.device = pm.mesh_device(mesh)
+                n = pm.axis_size(mesh, mesh_axis)
+                max_batch = -(-max_batch // n) * n
+                if not adaptive_embed:
+                    self._program, _ = make_dp_program(
+                        det_params, arc_params, cfg, mesh=mesh, axis=mesh_axis,
+                        max_faces_embed=max_faces,
+                        search_top_k=search_top_k if fuse_search else None,
+                    )
         self.aot = aot
         self.det, self.arc = det_params, arc_params
         self.cfg = cfg
@@ -142,14 +183,18 @@ class IdentifyService:
         if adaptive_embed:
             self._bucketed = BucketedEmbedPipeline(
                 det_params, arc_params, cfg, max_faces_embed=max_faces, valid_cap=valid_cap,
-                search_top_k=search_top_k if fuse_search else None, device=self.device,
+                search_top_k=search_top_k if fuse_search else None, mesh=self.mesh,
+                mesh_axis=mesh_axis, device=self.device,
             )
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._batches_run = 0
         self._requests_served = 0
         # rolling enqueue→result wall latency window (ms), for stats()
         self._lat: "deque[float]" = deque(maxlen=1024)
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        collective = self.mesh is not None or sharded
+        self._worker = threading.Thread(
+            target=self._run_agreed if collective else self._run, daemon=True
+        )
         self._worker.start()
 
     # ------------------------------------------------------------- client
@@ -236,6 +281,56 @@ class IdentifyService:
         if pending is not None:
             self._safe_resolve(pending)
 
+    def _agree(self, held: int, open_: bool) -> Tuple[int, bool]:
+        """One all-reduce over the ranks: (the fewest requests any rank
+        holds, whether every rank has closed with nothing held)."""
+        v = torch.tensor([held, -held, int(open_), -int(open_)], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(v, op=dist.ReduceOp.MIN, group=self._agree_group)
+        n_min, n_max, open_max = int(v[0]), -int(v[1]), -int(v[3])
+        return n_min, n_max == 0 and open_max == 0
+
+    def _run_agreed(self):
+        """The worker of a mesh or sharded service: the ranks agree on
+        every batch (module docstring), and each batch resolves right
+        after its dispatch."""
+        if self.device.type == "cuda":  # the rank's device, on this thread too
+            torch.cuda.set_device(self.device)
+        held: "deque[_Request]" = deque()
+        closed = False
+        while True:
+            if not closed:
+                deadline = time.perf_counter() + self.window_s if held else None
+                while len(held) < self.max_batch:
+                    timeout = 0.25 if deadline is None else deadline - time.perf_counter()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        closed = True
+                        break
+                    held.append(nxt)
+                    if deadline is None:
+                        deadline = time.perf_counter() + self.window_s
+            n, done = self._agree(len(held), not closed)
+            if done:
+                break
+            n = min(n, self.max_batch)
+            if n == 0:
+                continue
+            batch = [held.popleft() for _ in range(n)]
+            try:
+                ctx = self._dispatch(batch)
+            except Exception as e:  # a failed batch fails its requests only
+                for req in batch:
+                    if not req.future.done():
+                        req.future.set_exception(e)
+                continue
+            self._safe_resolve(ctx)
+
     def _safe_resolve(self, ctx):
         try:
             self._resolve(ctx)
@@ -253,7 +348,9 @@ class IdentifyService:
             frames.append(padded)
             scales.append(scale)
         stacked = np.stack(frames + [frames[-1]] * (self.max_batch - len(frames)))
-        x = torch.from_numpy(stacked).to(self.device, non_blocking=True)
+        x = torch.from_numpy(stacked)
+        if self.mesh is None:  # a mesh program moves each rank's block itself
+            x = x.to(self.device, non_blocking=True)
         # ONE bank snapshot answers this whole batch
         store = self.bank._store
         ctx = {"batch": batch, "scales": scales, "store": store}
@@ -269,6 +366,8 @@ class IdentifyService:
                     ctx["handle"] = self._bucketed.start(
                         x, n_frames=len(batch), bank_padded=bank_dev, n_rows=n_rows
                     )
+                elif self._program is not None:
+                    ctx["out"] = self._program(x, bank_dev, n_rows)
                 else:
                     ctx["out"] = frames_to_matches(
                         self.det, self.arc, x, bank_dev, n_rows, self.cfg,
@@ -276,6 +375,8 @@ class IdentifyService:
                     )
             elif self.adaptive:
                 ctx["handle"] = self._bucketed.start(x, n_frames=len(batch))
+            elif self._program is not None:
+                ctx["out"] = self._program(x)
             else:
                 ctx["out"] = frames_to_features(
                     self.det, self.arc, x, self.cfg, self.max_faces,
@@ -311,7 +412,7 @@ class IdentifyService:
                 # the host-side search, on the dispatch's snapshot; a
                 # request wider than the fused width takes it too, so it
                 # never gets fewer matches than default serving
-                n, s = self.bank._search(store, feats[i][:k], req.top_k)
+                n, s = self.bank._search(store, feats[i][:k], req.top_k, self.sharded)
                 for j in range(k):
                     names[j] = n[j]
                     sims[j, : len(s[j])] = s[j]

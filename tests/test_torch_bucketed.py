@@ -275,9 +275,26 @@ def test_two_phase_start_finish(setup):
     _close(f2, feats_d)
 
 
-def test_mesh_is_not_ported_and_the_card_is_the_default(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 16"):
-        _pipe(setup, mesh=2)
+@pytest.mark.parametrize("search", [False, True], ids=["features", "matches"])
+def test_mesh_is_not_ported_and_the_card_is_the_default(setup, search):
+    """The mesh form (ported now) on a one-rank Gloo mesh in process is the
+    unsharded pipeline bit for bit, counts and corrections included;
+    without a card the default device raises."""
+    from facerecognizeonnx_tpu_torch.parallel.mesh import make_mesh
+
+    frames, _, _, bank, _ = setup
+    kw = dict(search_top_k=3) if search else {}
+    call = dict(bank_padded=torch.from_numpy(bank), n_rows=16) if search else {}
+    plain = _pipe(setup, **kw)
+    ours = _pipe(setup, mesh=make_mesh(("data",), device="cpu"), **kw)
+    for cap in (2, None):  # the second step corrects a short guess
+        plain.valid_cap = ours.valid_cap = cap
+        want = plain(torch.from_numpy(frames), **call)
+        got = ours(frames, **call)
+        assert got[-1] == want[-1]
+        for a, b in zip(jax.tree_util.tree_leaves(got[:-1]), jax.tree_util.tree_leaves(want[:-1])):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (ours.corrections, ours.last_bucket) == (plain.corrections, plain.last_bucket)
     if not torch.cuda.is_available():
         _, _, _, _, (det, rec) = setup
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -173,14 +173,96 @@ def test_without_cuda_and_without_cpu(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["bench"], "item 8"), (["enroll", "x.png", "--sharded"], "item 16"), (["train", "d"], "item 17"),
-    (["eval", "d"], "item 17"), (["enroll", "x.png", "--experts", "a,b"], "item 16"),
-    (["identify", "x.png", "--sharded"], "item 16"), (["serve", "--dp", "2"], "item 16"),
-    (["serve", "--sharded"], "item 16"),
+    (["bench"], "item 8"), (["train", "d"], "item 17"), (["eval", "d"], "item 17"),
 ])
 def test_unported_modes_and_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         cli.main(argv + ["--cpu"])
+
+
+@pytest.fixture
+def plain_gallery(files, tmp_path, capsys):
+    """The gallery of a plain enroll of the three test images (after the
+    float32 wrap of auto_config, a function-scoped fixture)."""
+    _, paths, models = files
+    gallery = str(tmp_path / "plain.npz")
+    assert cli.main(["enroll", *paths, "--gallery", gallery, *models, "--json", "--cpu"]) == 0
+    capsys.readouterr()
+    return gallery
+
+
+_SERVE_PLAIN = {}
+
+
+def _serve_once(monkeypatch, argv, image):
+    """`serve` in process: the real make_server, one identify through its
+    service, then the serve loop ends as on Ctrl-C. Returns (make_server
+    kwargs, the IdentifyResult)."""
+    from facerecognizeonnx_tpu_torch.pipeline import server as srv
+
+    seen = {}
+    real = srv.make_server
+
+    def recording(*a, **kw):
+        server = real(*a, **kw)
+        seen["kw"], seen["result"] = kw, server.frt_service.identify(image, top_k=3)
+
+        def stop():
+            raise KeyboardInterrupt
+
+        server.serve_forever = stop
+        return server
+
+    monkeypatch.setattr(srv, "make_server", recording)
+    cli.main(argv + ["--port", "0", "--cpu"])
+    return seen["kw"], seen["result"]
+
+
+@pytest.mark.parametrize("case", ["enroll_sharded", "enroll_experts", "identify_sharded",
+                                  "serve_dp", "serve_sharded"])
+def test_parallel_options(files, plain_gallery, tmp_path, capsys, monkeypatch, case):
+    """--sharded, --experts and --dp on a one-rank Gloo mesh in process,
+    against the same command without them."""
+    from facerecognizeonnx_tpu_torch.io.imageio import imread
+
+    _, paths, models = files
+    plain = GalleryBank.load(plain_gallery, device="cpu")
+    if case.startswith("enroll"):
+        gallery = str(tmp_path / "g.npz")
+        extra = (["--sharded"] if case == "enroll_sharded"
+                 else ["--experts", f"{models[3]},{models[3]}"])  # --rec-model twice
+        rc, doc, err = run(cli.main, ["enroll", *paths, "--gallery", gallery, *models, *extra],
+                           capsys)
+        assert rc == 0 and doc["enrolled"] == ["p0", "p1", "p2"]
+        got = GalleryBank.load(gallery, device="cpu")
+        assert got.names == plain.names
+        np.testing.assert_allclose(got.features, plain.features, rtol=0, atol=1e-5)
+        if case == "enroll_experts":
+            assert doc["experts"] == 2 and "专家并行注册: 2 个识别器" in err
+        return
+    if case == "identify_sharded":  # the noise image: 28 faces, the others ~40 each
+        argv = ["identify", paths[2], *models, "--gallery", plain_gallery]
+        rc, want, _ = run(cli.main, argv, capsys)
+        rc2, got, _ = run(cli.main, argv + ["--sharded"], capsys)
+        assert rc == rc2 == 0 and got["faces"]
+        _same_faces(got["faces"], want["faces"])
+        assert [f["label"] for f in got["faces"]] == [f["label"] for f in want["faces"]]
+        return
+    image = imread(paths[0])
+    argv = ["serve", *models, "--gallery", plain_gallery]
+    if "want" not in _SERVE_PLAIN:  # the plain serve's answer, shared by both cases
+        _SERVE_PLAIN["want"] = _serve_once(monkeypatch, argv, image)[1]
+    want = _SERVE_PLAIN["want"]
+    capsys.readouterr()
+    extra = ["--dp", "2"] if case == "serve_dp" else ["--sharded"]
+    kw, got = _serve_once(monkeypatch, argv + extra, image)
+    out = capsys.readouterr().out
+    if case == "serve_dp":  # one process drives one device: --dp clamps to 1
+        assert "--dp 2 请求, 本机只有 1 设备 → dp=1" in out and kw["mesh"] is None
+    else:
+        assert kw["sharded"] is True
+    assert got.names == want.names and got.valid.any()
+    np.testing.assert_allclose(got.sims, want.sims, rtol=0, atol=1e-6)
 
 
 def test_onnx_pack_files_and_real_models_raise(files, tmp_path, monkeypatch, capsys):

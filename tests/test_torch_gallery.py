@@ -298,8 +298,13 @@ def test_bank_rejects_jax_names_and_unported_options(banks):
         port.search(queries, method="xla")
     with pytest.raises(ValueError, match="'cuda'"):
         port.search(queries, method="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search(queries, sharded=True)
+    # sharded=True is ported: rows over a one-rank Gloo "model" mesh in
+    # process, bit for bit the dense search (tests/test_torch_parallel.py
+    # holds 2 and 4 ranks)
+    n_s, s_s = port.search(queries, 5, sharded=True)
+    n_d, s_d = port.search(queries, 5, method="dense")
+    assert n_s == n_d
+    np.testing.assert_array_equal(s_s, s_d)
     with pytest.raises(InvalidInputError):
         port.search(np.zeros((2, 7), np.float32))
     with pytest.raises(GalleryError):

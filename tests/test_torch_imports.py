@@ -66,6 +66,13 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.cli",
     "facerecognizeonnx_tpu_torch.cli.main",
     "facerecognizeonnx_tpu_torch.__main__",
+    "facerecognizeonnx_tpu_torch.parallel",
+    "facerecognizeonnx_tpu_torch.parallel.distributed",
+    "facerecognizeonnx_tpu_torch.parallel.mesh",
+    "facerecognizeonnx_tpu_torch.parallel.sharded_ops",
+    "facerecognizeonnx_tpu_torch.parallel.tensor_parallel",
+    "facerecognizeonnx_tpu_torch.parallel.expert_parallel",
+    "facerecognizeonnx_tpu_torch.parallel.pipeline_stage",
 ]
 
 REPO = Path(__file__).resolve().parent.parent

@@ -211,10 +211,26 @@ def test_identify_payloads_match_jax(world):
 
 
 def test_make_server_defaults_and_unported_options(world, monkeypatch):
-    ((det, rec), _), _ = world
-    for kw, item in ((dict(sharded=True), "item 16"), (dict(mesh=2), "item 16")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_server(det, rec, GalleryBank(device="cpu"), port=0, device="cpu", **kw)
+    """sharded and mesh are ported: on a one-rank Gloo mesh in process the
+    server's service answers as an unsharded one."""
+    ((det, rec), _), images = world
+    from facerecognizeonnx_tpu_torch.io.imageio import decode_png
+
+    bank = GalleryBank(device="cpu")
+    bank.add_batch(["a", "b"], np.eye(2, 512, dtype=np.float32))
+    image = decode_png(images[0])
+    answers = []
+    for kw in (dict(), dict(sharded=True), dict(mesh=2)):
+        server = make_server(det, rec, bank, port=0, device="cpu", max_batch=2, **kw)
+        try:
+            answers.append(server.frt_service.identify(image, top_k=2))
+        finally:
+            server.server_close()
+            server.frt_service.close()
+    assert answers[0].valid.any()
+    for got in answers[1:]:
+        assert got.names == answers[0].names
+        np.testing.assert_allclose(got.sims, answers[0].sims, rtol=0, atol=1e-6)
     with pytest.raises(ModelLoadError, match="not found"):  # aot is ported: a path is loaded
         make_server(det, rec, GalleryBank(device="cpu"), port=0, device="cpu", aot="x.frtz")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -82,8 +82,16 @@ def test_enroll_batch_matches_jax(world, enrolled):
     (det, _), _, _, images = world
     crops = detect_align_crops(det, images, device="cpu")
     assert crops.dtype == np.uint8 and crops.shape == (len(kept), 112, 112, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enroll_batch(det, None, ["x"], images[:1], mesh=2, device="cpu")
+    # mesh= is ported: the data-parallel embed on a one-rank Gloo mesh in
+    # process gives the plain enroll's bank bit for bit
+    from facerecognizeonnx_tpu_torch.parallel.mesh import make_mesh
+
+    names = ["ann", "bob", "cid", "dan"]
+    (_, rec), _, _, _ = world
+    mbank, mkept = enroll_batch(det, rec, names, images, mesh=make_mesh(("data",), device="cpu"),
+                                device="cpu")
+    assert mkept == kept
+    np.testing.assert_array_equal(mbank.features, bank.features)
 
 
 def _banks(enrolled):
@@ -194,13 +202,31 @@ def test_bank_growth_between_dispatch_and_resolve(world, enrolled, fuse):
     assert later[0].names[0][:2] == ["ann", "copy0"]
 
 
-def test_service_rejects_unported_options(world, enrolled):
-    (det, rec), _, _, _ = world
+@pytest.mark.parametrize("kw", [dict(sharded=True), dict(mesh=2), dict(mesh=1, fuse_search=True),
+                                dict(mesh=1, adaptive_embed=True)],
+                         ids=["sharded", "mesh", "mesh_fused", "mesh_adaptive"])
+def test_service_rejects_unported_options(world, enrolled, kw):
+    """sharded and mesh are ported: on a one-rank Gloo mesh in process
+    (mesh=2 takes the min(2, world) = 1 rank there is) the service answers
+    as the plain one does. aot still loads a path."""
+    (det, rec), _, _, images = world
     pb, _ = _banks(enrolled)
-    for kw in (dict(sharded=True), dict(mesh=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            IdentifyService(det.params, rec.params, pb, dataclasses.replace(CFG), device="cpu",
-                            **kw)
+    cfg = dataclasses.replace(CFG)
+    args = (det.params, rec.params, pb, cfg)
+    opts = dict(max_batch=2, max_faces=MAX_FACES, device="cpu")
+    plain_kw = {k: v for k, v in kw.items() if k in ("fuse_search", "adaptive_embed")}
+    ours, plain = IdentifyService(*args, **opts, **kw), IdentifyService(*args, **opts, **plain_kw)
+    try:
+        for im in images[:3]:
+            _same_result(ours.identify(im, top_k=TOP_K), plain.identify(im, top_k=TOP_K),
+                         sims_atol=1e-6, boxes_atol=1e-5)
+        if "mesh" in kw:
+            assert ours.mesh is not None and ours.mesh.size() == 1
+    finally:
+        ours.close()
+        plain.close()
+    with pytest.raises(ValueError, match="sharded"):
+        IdentifyService(*args, sharded=True, fuse_search=True, device="cpu")
     with pytest.raises(ModelLoadError, match="not found"):  # aot is ported: a path is loaded
         IdentifyService(det.params, rec.params, pb, dataclasses.replace(CFG), device="cpu",
                         aot="bundle.frtz")
@@ -259,3 +285,34 @@ def test_adaptive_service_matches_dense(world, enrolled, fuse):
     assert sum(int(r.valid.sum()) for r in results[False]) > 0
     for g, w in zip(results[True], results[False]):
         _same_result(g, w, 1e-5)
+
+
+def test_two_rank_service_issues_collectives_in_one_order(tmp_path):
+    """Two Gloo ranks each run IdentifyService(sharded=True, mesh=2) on the
+    same requests in the same order, their callers paced differently: the
+    workers agree on every micro-batch, so the dp program's and the
+    sharded search's collectives pair up, and every rank answers as the
+    plain service does: names equal, sims within 1e-5 (float32 with the
+    gather warp; a rank's batch of 1 frame may take other conv algorithms
+    than the plain service's batch of 2, which moves features by ~1e-6)."""
+    from chip_smoke import detection_bias
+    from facerecognizeonnx_tpu_torch import bridge
+    from tests.torch_ranks import run_ranks
+
+    rng = np.random.default_rng(17)
+    images = rng.integers(0, 256, (6, 128, 128, 3), dtype=np.uint8)
+    bank = rng.normal(size=(20, 512)).astype(np.float32)
+    inputs = {
+        "det": detection_bias(bridge.init_params_numpy("500m", seed=0), torch.from_numpy(images)),
+        "rec": bridge.init_params_numpy("iresnet18", seed=1),
+        "bank": bank / np.linalg.norm(bank, axis=1, keepdims=True),
+        "images": images,
+    }
+    outs = [o["service"] for o in run_ranks(tmp_path, 2, ["service"], inputs)]
+    for o in outs:
+        ours, plain = o["ours"], o["plain"]
+        assert ours["valid"].any()
+        np.testing.assert_array_equal(ours["valid"], plain["valid"])
+        np.testing.assert_array_equal(ours["names"], plain["names"])
+        np.testing.assert_allclose(ours["sims"], plain["sims"], rtol=0, atol=1e-5)
+    assert outs[0]["ours"]["batches"] == outs[1]["ours"]["batches"]
