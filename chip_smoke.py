@@ -207,10 +207,36 @@ Phases (any failure exits non-zero; there is no CPU path):
      (g) one line: the pipeline stage is held on the CPU only (its stage
      axis is 2, and NCCL refuses two ranks on one GPU); the group is
      destroyed at the end
- 17. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
+ 17. training on the card (`phase_train`): (a) an identity folder of 8
+     ids × 4 seeded noise PNGs of 640x480 in a temp directory, detected
+     by phase 5's SCRFD-500m (`bias_detector`) and aligned through
+     `IdentityFolderDataset` (bf16, warp "cuda"): one warp_xm, one
+     pyramid and one nms_greedy launch per image, every crop bit-equal to
+     the plain warp's on the same matrices; (b) one IResNet-50 step (112²,
+     512-d, float32, TF32 off) at B=8 on the card against the port's CPU
+     step from the same seeded state and batch: loss within rel 1e-5, BN
+     statistics within STAT_BAR, classifier and momentum within 1e-4 of
+     their scale, the backbone's update and momentum within UPDATE_BAR
+     relative L2 (a PReLU input within float32 noise of 0 may take the
+     other side of the kink); remat=True against plain over 2 steps,
+     loss within rel 1e-5; (c) speed at B=128, C=93,431 (arcface_torch's
+     ms1mv3_r50 per-GPU batch and class count), TF32 as the port leaves
+     it: ms/step median of 10 after 3 warm-up steps with min-max,
+     images/s, peak memory, the loss on the one batch falling; (d) `fit`
+     for 6 steps with a checkpoint at 3: the run resumed from it equals
+     the uninterrupted run bit for bit (cuDNN deterministic for this
+     check); (e) `train_detector` on SCRFD-500m at 640², B=8, 20 Adam
+     steps on phase 5's frames with seeded boxes (the loss falls), and
+     one step at B=2 on the card against the CPU (TF32 off): loss within
+     rel 1e-5, ≥ 99.9% of the weights within 1e-6 + 1e-5·|w|, all
+     within 2·lr; (f) the CLI: `train <root> --align --steps 3 --batch 8`
+     and `eval <root> --align --json` in subprocesses, then `enroll` and
+     `identify --rec-model` of the trained `.npz` in process
+ 18. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
      nms_greedy also give `dp_launches`, their launches in one call of
-     the dp step), the nvidia-smi line, and last {"ok": true, "device":
-     {...}}
+     the dp step, and `train_launches`, their launches while phase 17
+     builds its crops), the nvidia-smi line, and last {"ok": true,
+     "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; launches made to compare a kernel with its plain
@@ -264,7 +290,7 @@ from facerecognizeonnx_tpu_torch.embed.pipeline import (
     align_faces_batch,
     embed_crops,
 )
-from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, decode_image
+from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, decode_image, imread
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.models import arcface, packs, quant, scrfd
@@ -2756,6 +2782,296 @@ def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
     return {n: dp_counts[n] for n in ("warp_xm", "warp_xm_pyramid", "nms_greedy")}
 
 
+# ---------------------------------------------------------------- phase 17: training
+
+TRAIN_IDS, TRAIN_PER_ID = 8, 4  # the identity folder: 8 identities × 4 images
+TRAIN_HW = (480, 640)
+SPEED_B, SPEED_C = 128, 93_431  # arcface_torch configs/ms1mv3_r50.py: per-GPU batch, classes
+STAT_BAR = 1e-3  # BN statistics: card vs CPU, of each statistic's scale
+UPDATE_BAR = 1e-2  # the backbone's update and momentum: relative L2 (PReLU kinks)
+
+
+def write_identity_folder(root: str, rng, hw=TRAIN_HW) -> list:
+    """TRAIN_IDS identities × TRAIN_PER_ID seeded noise PNGs of hw (H, W)
+    under root/<id>/; returns the BGR images in listing order."""
+    images = []
+    for i in range(TRAIN_IDS):
+        os.makedirs(os.path.join(root, f"id{i}"))
+        for j in range(TRAIN_PER_ID):
+            img = rng.integers(0, 256, tuple(hw) + (3,), dtype=np.uint8)
+            with open(os.path.join(root, f"id{i}", f"{j}.png"), "wb") as f:
+                f.write(png_bytes(img[..., ::-1]))
+            images.append(img)
+    return images
+
+
+def train_arrays(state) -> dict:
+    """A train state as flat numpy leaves in JAX keys: "p/<param>",
+    "t/<param>" (the momentum), "classifier", "trace_cls"."""
+    flat = {f"p/{k}": v for k, v in checkpoint._flatten(bridge.tree_from_module(state.model)).items()}
+    trace = {k: v for k, v in state.opt_state["trace"].items() if k != "classifier"}
+    flat.update({f"t/{k}": v for k, v in checkpoint._flatten(
+        bridge.tree_from_tensors(state.model, trace)).items()})
+    flat["classifier"] = state.classifier.detach().cpu().numpy()
+    flat["trace_cls"] = state.opt_state["trace"]["classifier"].cpu().numpy()
+    return flat
+
+
+def step_errors(got: dict, want: dict, before: dict) -> dict:
+    """Card state vs CPU state after the same step from `before`: BN
+    statistics (mean against the channel's std, var relative), the
+    classifier and its momentum (of the leaf's scale), and the backbone's
+    update and momentum (relative L2 over the backbone)."""
+    stats = [k for k in want if k.startswith("p/") and k.endswith(("/mean", "/var"))]
+    weights = [k for k in want if k.startswith("p/") and k not in stats]
+    stat_err = 0.0
+    for k in stats:
+        if k.endswith("/mean"):
+            sd = np.sqrt(want[k[:-5] + "/var"])
+            stat_err = max(stat_err, float(np.max(np.abs(got[k] - want[k]) / sd)))
+        else:
+            stat_err = max(stat_err, float(np.max(np.abs(got[k] - want[k]) / want[k])))
+
+    def l2(keys, a, b, base=None):
+        da = np.concatenate([(a[k] - (base[k] if base else 0)).ravel() for k in keys])
+        db = np.concatenate([(b[k] - (base[k] if base else 0)).ravel() for k in keys])
+        return float(np.linalg.norm(da - db) / np.linalg.norm(db))
+
+    cls_err = max(float(np.max(np.abs(got[k] - want[k])) / max(np.abs(want[k]).max(), 0.01))
+                  for k in ("classifier", "trace_cls"))
+    return {
+        "stats": stat_err,
+        "classifier": cls_err,
+        "update": l2(weights, got, want, before),
+        "momentum": l2(["t/" + k[2:] for k in weights], got, want),
+    }
+
+
+def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch="iresnet50",
+                speed=(SPEED_B, SPEED_C), cli_args=()) -> dict:
+    """Training on the card (module docstring, phase 17): the identity
+    folder of hw images through a det_size detector, `arch` steps, the
+    speed run at speed = (B, C), the detector fine-tuned on `frames`.
+    Returns the launches of the train data path per kernel."""
+    from facerecognizeonnx_tpu_torch.train.data import IdentityFolderDataset
+    from facerecognizeonnx_tpu_torch.train.detector import train_detector
+    from facerecognizeonnx_tpu_torch.train.fit import fit
+    from facerecognizeonnx_tpu_torch.train.trainer import init_train_state, make_train_step
+    from facerecognizeonnx_tpu_torch.types import face_boxes_to_arrays
+
+    tmp = tempfile.mkdtemp(prefix="frt_train_")
+    root = os.path.join(tmp, "ids")
+    images = write_identity_folder(root, rng, hw)
+    n_img = len(images)
+
+    # ---- (a) the data path: detect (NMS kernel) → align (x-major warp kernel)
+    cfg = PipelineConfig(compute_dtype="bfloat16", warp_impl="cuda", det_input_size=det_size)
+    det = FaceDetector(cfg, device=dev)
+    assert det.load_model(None)
+    boxed = np.zeros((n_img, det_size, det_size, 3), np.uint8)
+    boxed[:, :hw[0], :hw[1]] = np.stack(images)  # the letterbox at scale 1
+    bias_detector(det, torch.from_numpy(boxed).to(dev))
+    ds = IdentityFolderDataset(root, detector=det, cfg=cfg)
+    assert ds.num_classes == TRAIN_IDS and len(ds) == n_img
+    t0 = time.perf_counter()
+    reset_counts()
+    crops = [ds.crop(path) for path, _ in ds.samples]
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    data_s = time.perf_counter() - t0
+    for name in ("warp_xm", "warp_xm_pyramid", "nms_greedy"):
+        assert train_counts[name] == n_img, (name, train_counts)
+    n_equal = 0
+    with torch.no_grad():
+        for (path, _), crop in zip(ds.samples, crops):
+            image = imread(path)
+            faces = det.detect(image)
+            assert faces, f"no face in {path}"
+            d = face_boxes_to_arrays(faces[:1], 1)
+            M = _align_matrices(d.kps[None].to(dev), d.boxes[None].to(dev), *hw, 112)
+            plain = warp_cuda.warp_affine_xm_reference(
+                torch.from_numpy(image)[None].to(dev), M, None, None)[0, 0]
+            n_equal += int(np.array_equal(plain.cpu().numpy().astype(np.uint8), crop))
+    assert n_equal == n_img, f"{n_img - n_equal} crops differ from the plain warp's"
+    log(f"train data: {TRAIN_IDS} ids × {TRAIN_PER_ID} PNGs {hw[1]}x{hw[0]}, "
+        f"{data_s:.2f} s to decode+detect+align {n_img}; launches warp_xm "
+        f"{train_counts['warp_xm']}, pyramid {train_counts['warp_xm_pyramid']}, nms_greedy "
+        f"{train_counts['nms_greedy']} (one each per image); crops bit-equal to the plain "
+        f"warp's on the same matrices: {n_equal}/{n_img}")
+
+    # ---- (b) one train step at full width, card vs CPU; remat vs plain
+    rcfg = PipelineConfig(compute_dtype="float32")
+    x8, y8 = next(ds.batches(8, seed=0))
+    n_cls = 1000
+    with tf32_off():
+        card = init_train_state(0, n_cls, rcfg, arch, device=dev)
+        cpu = init_train_state(0, n_cls, rcfg, arch, device="cpu")
+        before = train_arrays(cpu)
+        step = make_train_step(None, rcfg)
+        card, loss_card = step(card, x8, y8)
+        cpu, loss_cpu = step(cpu, x8, y8)
+        errs = step_errors(train_arrays(card), train_arrays(cpu), before)
+        loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+        assert loss_rel <= 1e-5, (float(loss_card), float(loss_cpu))
+        assert errs["stats"] <= STAT_BAR and errs["classifier"] <= 1e-4, errs
+        assert errs["update"] <= UPDATE_BAR and errs["momentum"] <= UPDATE_BAR, errs
+        remat_losses = {}
+        for remat in (False, True):
+            st = init_train_state(0, n_cls, rcfg, arch, device=dev)
+            rstep = make_train_step(None, rcfg, remat=remat)
+            ls = []
+            for _ in range(2):
+                st, loss = rstep(st, x8, y8)
+                ls.append(float(loss))
+            remat_losses[remat] = ls
+        remat_rel = max(abs(a - b) / abs(b) for a, b in zip(remat_losses[True],
+                                                             remat_losses[False]))
+        assert remat_rel <= 1e-5, remat_losses
+    del card, cpu, st
+    log(f"train step {arch} 112² f32 (TF32 off), B=8 C={n_cls}, card vs CPU: loss "
+        f"{float(loss_card):.6f} vs {float(loss_cpu):.6f} (rel {loss_rel:.2e}, bar 1e-5); BN "
+        f"stats {errs['stats']:.2e} (bar {STAT_BAR:g}), classifier+momentum "
+        f"{errs['classifier']:.2e} (bar 1e-4), backbone update {errs['update']:.2e} and "
+        f"momentum {errs['momentum']:.2e} rel L2 (bar {UPDATE_BAR:g}); remat vs plain, 2 "
+        f"steps: loss rel {remat_rel:.2e} (bar 1e-5)")
+
+    # ---- (c) speed at full width: B=128, C=93,431
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(3)
+    speed_b, speed_c = speed
+    xb = (torch.rand((speed_b, 112, 112, 3), generator=gen) * 2 - 1).to(dev)
+    yb = torch.randint(0, speed_c, (speed_b,), generator=gen).to(dev)
+    state = init_train_state(1, speed_c, rcfg, arch, device=dev)
+    step = make_train_step(None, rcfg)
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, xb, yb)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, loss = step(state, xb, yb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()  # the 3 warm-up steps, then the 10 timed
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    med = statistics.median(times)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    del state, xb
+    torch.cuda.empty_cache()
+    log(f"train speed {arch} 112² f32 (TF32 as the port leaves it: cuDNN on, matmul "
+        f"off), B={speed_b} C={speed_c}: {med:.2f} ms/step median of 10 after 3 warm-up "
+        f"(min {min(times):.2f}, max {max(times):.2f}) = {speed_b / med * 1e3:.1f} images/s; "
+        f"peak memory {peak_mib:.0f} MiB; loss on the one batch {losses[0]:.4f} at step 1, "
+        f"{losses[3]:.4f} at step 4, {losses[-1]:.4f} at step 13 | card: {smi}")
+
+    # ---- (d) fit with a checkpoint at 3 of 6, resumed vs uninterrupted
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = list(ds.batches(8, seed=1, epochs=2))[:6]
+        quiet = dict(log_every=0, log=lambda *_: None)
+        ckpt = os.path.join(tmp, "fit.ckpt")
+        step = make_train_step(None, rcfg)
+        straight, _ = fit(init_train_state(2, TRAIN_IDS, rcfg, arch, device=dev),
+                          step, iter(batches), 6, **quiet)
+        fit(init_train_state(2, TRAIN_IDS, rcfg, arch, device=dev), step,
+            iter(batches[:3]), 6, ckpt_path=ckpt, ckpt_every=3, **quiet)
+        resumed, hist = fit(init_train_state(2, TRAIN_IDS, rcfg, arch, device=dev),
+                            step, iter(batches), 6, ckpt_path=ckpt, **quiet)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    a, b = train_arrays(resumed), train_arrays(straight)
+    fit_equal = all(np.array_equal(a[k], b[k]) for k in b)
+    assert int(resumed.step) == int(straight.step) == 6 and fit_equal, "resume differs"
+    del resumed, straight
+    log(f"fit: 6 steps with a checkpoint at 3 ({os.path.getsize(ckpt) / 2**20:.0f} MiB); the "
+        f"run resumed from it equals the uninterrupted run bit for bit (cuDNN deterministic "
+        f"for this check)")
+
+    # ---- (e) detector fine-tuning: SCRFD-500m 640², B=8, 20 Adam steps
+    boxes = []
+    for _ in range(frames.shape[0]):
+        side = frames.shape[1]
+        xy = rng.uniform(0.03, 0.75, (2, 2)).astype(np.float32) * side
+        wh = rng.uniform(0.06, 0.2, (2, 2)).astype(np.float32) * side
+        boxes.append(np.concatenate([xy, xy + wh], 1))
+    frames_np = frames.cpu().numpy()
+    dcfg = PipelineConfig(compute_dtype="float32", det_input_size=frames.shape[1])
+    t0 = time.perf_counter()
+    _, det_losses = train_detector(frames_np, boxes, dcfg, steps=20, batch=8, init_params=det_tree,
+                                   log_every=0, device=dev)
+    det_s = time.perf_counter() - t0
+    assert det_losses[-1] < det_losses[0], det_losses
+    lr = 2e-3
+    with tf32_off():
+        outs = {}
+        for where in (dev, "cpu"):
+            model, ls = train_detector(frames_np, boxes, dcfg, steps=1, batch=2, lr=lr,
+                                       init_params=det_tree, log_every=0, device=where)
+            outs[str(where)] = (checkpoint._flatten(bridge.tree_from_module(model)), ls[0])
+    (g, gl), (w, wl) = outs[str(dev)], outs["cpu"]
+    det_loss_rel = abs(gl - wl) / abs(wl)
+    n = close = 0
+    worst = 0.0
+    for k in w:
+        if k.endswith(("/mean", "/var")):
+            continue
+        d = np.abs(g[k] - w[k])
+        worst = max(worst, float(d.max()))
+        n += d.size
+        close += int((d <= 1e-6 + 1e-5 * np.abs(w[k])).sum())
+    assert det_loss_rel <= 1e-5 and worst <= 2 * lr + 1e-5 and close >= 0.999 * n, \
+        (det_loss_rel, worst, close / n)
+    log(f"detector fine-tuning SCRFD-500m {frames.shape[1]}² f32, B=8: 20 Adam steps in "
+        f"{det_s:.2f} s, loss "
+        f"{det_losses[0]:.4f} → {det_losses[-1]:.4f}; one step B=2 card vs CPU (TF32 off): loss "
+        f"rel {det_loss_rel:.2e} (bar 1e-5), weights {close / n:.6f} within 1e-6+1e-5|w| "
+        f"(bar 0.999), max|d| {worst:.2e} (bar 2·lr: Adam's first step is lr·sign(g))")
+
+    # ---- (f) the CLI: train and eval in subprocesses, identify in process
+    det_npz, rec_npz = os.path.join(tmp, "det.npz"), os.path.join(tmp, "rec.npz")
+    checkpoint.save_params(det_npz, detection_bias(bridge.init_params_numpy("500m", seed=0),
+                                                   torch.from_numpy(boxed).to(dev)))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    base = [sys.executable, "-m", "facerecognizeonnx_tpu_torch"]
+    t0 = time.perf_counter()
+    sizes = ["--det-size", str(det_size), "--rec-arch", arch, *cli_args]
+    run = subprocess.run(base + ["train", root, "--align", "--steps", "3", "--batch", "8",
+                                 "--det-model", det_npz, "--out", rec_npz, *sizes],
+                         capture_output=True, text=True, timeout=300, env=env)
+    train_s = time.perf_counter() - t0
+    assert run.returncode == 0 and os.path.isfile(rec_npz), run.stdout[-3000:] + run.stderr[-3000:]
+    assert "训练完成: 3 步" in run.stdout, run.stdout[-2000:]
+    t0 = time.perf_counter()
+    run = subprocess.run(base + ["eval", root, "--align", "--det-model", det_npz, "--rec-model",
+                                 rec_npz, "--json", *sizes],
+                         capture_output=True, text=True, timeout=300, env=env)
+    eval_s = time.perf_counter() - t0
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    assert report["mode"] == "eval" and 0.0 <= report["accuracy"] <= 1.0, report
+    assert report["identities"] == TRAIN_IDS and report["images"] == n_img, report
+    gallery = os.path.join(tmp, "g.npz")
+    paths = [p for p, _ in ds.samples]
+    common = ["--det-model", det_npz, "--rec-model", rec_npz, "--gallery", gallery, *sizes]
+    _cli_json(["enroll", paths[0], paths[1], *common])
+    doc, _ = _cli_json(["identify", paths[2], *common])
+    assert doc["gallery_size"] == 2 and doc["faces"], doc
+    log(f"CLI: `train <root> --align --steps 3 --batch 8` {train_s:.1f} s (subprocess) wrote "
+        f"{os.path.getsize(rec_npz) / 2**20:.0f} MiB; `eval <root> --align` {eval_s:.1f} s: "
+        f"accuracy {report['accuracy']:.4f} over {report['genuine_pairs']}+"
+        f"{report['impostor_pairs']} pairs; `identify --rec-model` of it: "
+        f"{len(doc['faces'])} face(s), top {doc['faces'][0]['label']}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {k: train_counts[k] for k in ("warp_xm", "warp_xm_pyramid", "nms_greedy")}
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2954,20 +3270,26 @@ def main() -> int:
     phase(16)
     dp_launches = phase_parallel(dev, rng, frames, det, rec, bank, N_ROWS, K, TOP_K, cfg)
 
-    # ---- 17. result lines
+    # ---- 17. training on the card
     phase(17)
+    train_launches = phase_train(dev, rng, frames, det_tree, smi)
+
+    # ---- 18. result lines
+    phase(18)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm, with the "
                       "face table of _warp_affine_pallas_xm, :422-492)",
-             launches=main_launches, dp_launches=dp_launches["warp_xm"], **xm),
+             launches=main_launches, dp_launches=dp_launches["warp_xm"],
+             train_launches=train_launches["warp_xm"], **xm),
         dict(name="warp_xm_pyramid", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:249 (build_pyramid_xm, the "
                       "prologue of _warp_affine_pallas_xm)",
              launches=main_counts["warp_xm_pyramid"],
-             dp_launches=dp_launches["warp_xm_pyramid"], **pyramid),
+             dp_launches=dp_launches["warp_xm_pyramid"],
+             train_launches=train_launches["warp_xm_pyramid"], **pyramid),
         dict(name="warp_ym", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_ym.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:101 (_kernel)", **ym),
@@ -2979,7 +3301,7 @@ def main() -> int:
              replaces="facerecognizeonnx_tpu/ops/nms.py:100-112 (nms_fixed's lax.while_loop; "
                       "no Pallas kernel)",
              launches=main_counts["nms_greedy"], dp_launches=dp_launches["nms_greedy"],
-             **nms_entry),
+             train_launches=train_launches["nms_greedy"], **nms_entry),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -16,6 +16,13 @@ present) are accepted. Layout conversions:
 `tree_from_module(model)` is the inverse, module → numpy tree (the
 ONNX exporter's input).
 
+For training (`models.layers.make_trainable` modules): `tree_from_tensors`
+/ `tensors_from_tree` carry per-parameter tensors (a gradient, a
+momentum) between a module's parameter names and a JAX-layout tree,
+`load_tree_into` overwrites a module's weights from a tree, and
+`train_state_from_numpy` carries a JAX `TrainState` (after
+`jax.device_get`) into the port's (train/trainer.py).
+
 `init_params_numpy(arch, seed)` draws a tree of the same shapes as the
 JAX initializers (He-normal convs and FC, identity BN and LayerNorm,
 PReLU 0.25, the SCRFD focal-style cls bias, ViT positions N(0, 0.02²))
@@ -25,6 +32,7 @@ values differ from `jax.random`'s.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import numpy as np
@@ -43,6 +51,7 @@ from facerecognizeonnx_tpu_torch.models.layers import (
     ConvUnit,
     Linear,
     PReLU,
+    make_trainable,
 )
 from facerecognizeonnx_tpu_torch.models.mobilefacenet import (
     MBF_SPECS,
@@ -217,7 +226,8 @@ def params_from_numpy(tree: Dict, device="cuda") -> torch.nn.Module:
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", torch.float32).numpy()
+    # a copy: a trainable module's tensors change in place at every step
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
 def _conv_tree(conv: Conv) -> Dict:
@@ -270,7 +280,10 @@ def tree_from_module(model: torch.nn.Module) -> Dict:
             "bbox": _conv_tree(model.bbox),
             "kps": _conv_tree(model.kps),
         }
-        tree["scales"] = {f"s{s}": np.float32(v) for s, v in model.scales.items()}
+        tree["scales"] = {  # floats, or parameters in a trainable model
+            f"s{s}": np.float32(_n(v) if isinstance(v, torch.Tensor) else v)
+            for s, v in model.scales.items()
+        }
         return tree
     if isinstance(model, IResNet):
         stem = _unit_tree(model.stem, "conv1", "bn1", "prelu1")
@@ -316,6 +329,75 @@ def tree_from_module(model: torch.nn.Module) -> Dict:
     if model.features_bn is not None:
         tree["features_bn"] = _bn_tree(model.features_bn)
     return tree
+
+
+# ---------------------------------------------------------------- training
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def tree_from_tensors(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict:
+    """The JAX-layout tree of per-parameter tensors of a trainable `model`
+    ({parameter name: tensor of its shape}, e.g. a momentum): the
+    model's tree with each parameter replaced by its tensor and each BN
+    running statistic by zeros (a JAX optimizer state holds zeros there:
+    those leaves get no gradient in train mode)."""
+    shadow = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in shadow.named_parameters():
+            p.copy_(tensors[name])
+        for b in shadow.buffers():
+            b.zero_()
+    return tree_from_module(shadow)
+
+
+def tensors_from_tree(model: torch.nn.Module, tree: Dict) -> Dict[str, torch.Tensor]:
+    """The inverse of `tree_from_tensors`: {parameter name of `model`:
+    tensor} from a JAX-layout tree of the model's structure, on the
+    model's device (its BN statistic leaves are ignored)."""
+    shadow = make_trainable(params_from_numpy(tree, device=_model_device(model)))
+    return {n: p.detach() for n, p in shadow.named_parameters()}
+
+
+def load_tree_into(model: torch.nn.Module, tree: Dict) -> torch.nn.Module:
+    """Overwrite a trainable model's weights and BN statistics, in place,
+    from a JAX-layout tree of the same structure."""
+    src = make_trainable(params_from_numpy(tree, device=_model_device(model)))
+    with torch.no_grad():
+        model.load_state_dict(src.state_dict())
+    return model
+
+
+def train_state_from_numpy(params: Dict, classifier, opt_state, step, device="cuda",
+                           mesh=None):
+    """A JAX `TrainState`'s fields (after `jax.device_get`: the params
+    tree, the (D, C) classifier, the optax SGD state, the step) → the
+    port's `TrainState` on `device` (or this rank's device and classifier
+    columns on `mesh`), so both packages step from the same state. The
+    optax state is (TraceState(trace=(params, classifier)), EmptyState()
+    or ScaleByScheduleState(count)); without a count the count is the
+    step."""
+    from facerecognizeonnx_tpu_torch.train.trainer import (
+        TrainState,
+        _state_device,
+        column_block,
+    )
+
+    dev = _state_device(mesh, device)
+    model = make_trainable(params_from_numpy(params, device=dev))
+    trace_params, trace_cls = opt_state[0].trace
+    has_count = "count" in getattr(opt_state[1], "_fields", ())
+    count = opt_state[1].count if has_count else step
+    trace = tensors_from_tree(model, trace_params)
+    trace["classifier"] = column_block(_t(trace_cls), mesh).to(dev)
+    cls = column_block(_t(classifier), mesh).to(dev).requires_grad_(True)
+    return TrainState(
+        model, cls,
+        {"trace": trace, "count": torch.tensor(int(np.asarray(count)), dtype=torch.int64)},
+        torch.tensor(int(np.asarray(step)), dtype=torch.int64),
+    )
 
 
 # ---------------------------------------------------------------- numpy init

@@ -15,6 +15,11 @@ Extras:
                                                as an ONNX graph
   export out.frtz [--batch 8]                — the whole fused step as an
                                                AOT bundle (pipeline/aot.py)
+  train <root> [--align]                     — ArcFace training on an identity
+                                               folder → --rec-model .npz
+  train <root> --detector --det-gt gt.json   — SCRFD fine-tuning → --det-model
+  eval <root> [--align] [--pairs-file f]     — verification accuracy, TAR@FAR
+  eval <root> --det-gt gt.json               — detection AP
   doctor                                     — environment diagnosis
   --json                                     — one JSON document on stdout,
                                                human output on stderr
@@ -27,9 +32,10 @@ b.frtz` answers /identify from a bundle; `enroll --experts a.npz,b.npz`
 routes each face to a specialist recognizer by yaw, `identify/serve
 --sharded` spread the gallery rows over the ranks of the process group,
 and `serve --dp N` serves data-parallel over its first N ranks (clamped
-to the group's size: one process drives one device). Not ported yet,
-and raising NotImplementedError that names its ROADMAP.md item: the
-modes bench, train and eval.
+to the group's size: one process drives one device); `train` runs its
+data-parallel mesh over the ranks of the process group (one rank: no
+mesh). Not ported, and raising NotImplementedError that names its
+ROADMAP.md note: the mode bench.
 
 Headless by default: annotated images are written next to the input
 (`<name>_out.jpg`, which needs cv2 or PIL to encode); `--show` opens
@@ -56,8 +62,6 @@ from facerecognizeonnx_tpu_torch.utils.draw import draw_face_info
 
 UNPORTED_MODES = {
     "bench": "the bench harness is not ported (ROADMAP.md, the note at Queue A item 8)",
-    "train": "training is not ported yet (ROADMAP.md Queue A item 17)",
-    "eval": "evaluation is not ported yet (ROADMAP.md Queue A item 17)",
 }
 
 
@@ -580,6 +584,343 @@ def mode_export(args):
     print(f"已导出 ONNX 模型: {out} ({len(data) / 1e6:.1f} MB)")
 
 
+def mode_train(args):
+    """Train the recognizer on an identity-folder dataset
+    (root/<identity>/*.jpg) and save .npz weights loadable via
+    --rec-model (by either package): the partial-FC ArcFace recipe
+    (train/trainer.py + train/fit.py) with crash-safe resume from
+    --train-ckpt. With --align every image is detected and aligned as
+    serving does (on the card: the NMS and x-major warp kernels).
+
+    `--detector` switches to DETECTOR fine-tuning: root + `--det-gt
+    gt.json` (the same box-JSON format `eval --det-gt` scores against)
+    → --det-model-loadable .npz (train/detector.py)."""
+    if args.detector:
+        return _train_detector(args)
+
+    import torch.distributed as dist
+
+    from facerecognizeonnx_tpu_torch import bridge
+    from facerecognizeonnx_tpu_torch.train.data import IdentityFolderDataset
+    from facerecognizeonnx_tpu_torch.train.fit import fit, warmup_cosine
+    from facerecognizeonnx_tpu_torch.train.trainer import init_train_state, make_train_step
+    from facerecognizeonnx_tpu_torch.utils.checkpoint import save_params
+
+    cfg = _cfg(args)
+    root = args.images[0]
+    detector = None
+    if args.align:
+        detector = FaceDetector(cfg, device=args.device)
+        if not detector.load_model(args.det_model):
+            print(f"无法加载人脸检测模型: {args.det_model}")
+            sys.exit(-1)
+    ds = IdentityFolderDataset(root, detector=detector, cfg=cfg, min_images_per_id=2)
+    if ds.num_classes < 2:
+        print(f"训练数据不足: {root} 下仅 {ds.num_classes} 个身份 (需要 ≥2)")
+        return -1
+    if args.lr is None:
+        args.lr = 0.02  # recognizer default (warmup-cosine peak)
+    if args.batch is None:
+        args.batch = 32
+    batch = min(args.batch, len(ds))
+    # data-parallel mesh over the largest rank count dividing the batch
+    # (one rank per device; a single process trains without a mesh)
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    data_dim = max(d for d in range(1, n_dev + 1) if batch % d == 0)
+    mesh = None
+    if n_dev > 1:
+        from facerecognizeonnx_tpu_torch.parallel.mesh import in_mesh, make_mesh
+
+        mesh = make_mesh((cfg.data_axis, cfg.model_axis), (data_dim, 1),
+                         ranks=range(data_dim), device=args.device)
+        if not in_mesh(mesh):
+            return 0
+    print(
+        f"训练: {ds.num_classes} 个身份 / {len(ds)} 张图像, "
+        f"batch {batch}, mesh data={data_dim}, arch {cfg.rec_arch}"
+    )
+    sched = warmup_cosine(args.lr, total_steps=args.steps)
+    state = init_train_state(cfg.seed, num_classes=ds.num_classes, cfg=cfg,
+                             arch=cfg.rec_arch, mesh=mesh, lr=sched, device=args.device)
+    step_fn = make_train_step(mesh, cfg, lr=sched, margin=args.margin)
+    ckpt = args.train_ckpt or args.out + ".ckpt"
+    state, _ = fit(
+        state, step_fn,
+        ds.batches(batch, seed=cfg.seed, augment=not args.no_augment),
+        args.steps,
+        ckpt_path=ckpt, ckpt_every=args.ckpt_every, log_every=10, mesh=mesh,
+    )
+    if mesh is None or dist.get_rank() == 0:
+        save_params(args.out, bridge.tree_from_module(state.model))
+    print(
+        f"训练完成: {int(state.step)} 步 → {args.out} "
+        f"(身份数 {ds.num_classes}; 用 --rec-model {args.out} 加载)"
+    )
+
+
+def _train_detector(args):
+    """`train <root> --detector --det-gt gt.json`: SCRFD fine-tuning on
+    labeled boxes (train/detector.py). Saves the train-form .npz that
+    `--det-model` loads (BN folded at load)."""
+    from facerecognizeonnx_tpu_torch import bridge
+    from facerecognizeonnx_tpu_torch.pipeline.api import _load_tree
+    from facerecognizeonnx_tpu_torch.train.detector import (
+        load_detection_dataset,
+        train_detector,
+    )
+    from facerecognizeonnx_tpu_torch.utils.checkpoint import save_params
+
+    if not args.det_gt:
+        print("train --detector 需要 --det-gt gt.json (框标注)")
+        return -1
+    if args.steps <= 0:
+        print(f"--steps 必须 > 0 (得到 {args.steps})")
+        return -1
+    # the recognizer CLI defaults (warmup-cosine 0.02 / batch 32) do NOT
+    # apply here: detector fine-tuning uses flat Adam at the module's
+    # tuned defaults unless the user overrides
+    lr = 2e-3 if args.lr is None else args.lr
+    batch = 8 if args.batch is None else args.batch
+    cfg = _cfg(args)
+    root = args.images[0]
+    images, boxes = load_detection_dataset(root, args.det_gt, cfg.det_input_size)
+    n_boxes = sum(len(b) for b in boxes)
+    print(
+        f"检测器训练: {len(images)} 图像 / {n_boxes} 框, "
+        f"det_{cfg.scrfd_variant} @ {cfg.det_input_size}, "
+        f"batch {min(batch, len(images))}"
+    )
+    init = None
+    if args.det_model:  # fine-tune from existing train-form (unfolded) weights
+        init = None if args.det_model.endswith(".onnx") else _load_tree(args.det_model, None)
+        if not (isinstance(init, dict) and "backbone" in init):
+            # an .onnx detector graph is inference-only; fine-tuning needs
+            # the native train-form tree (BN stats etc.), an .npz of a train run
+            print(
+                f"无法微调 {args.det_model}: 检测器微调需要训练形式的 "
+                ".npz 权重 (.onnx 图仅支持推理)"
+            )
+            return -1
+    model, losses = train_detector(
+        images, boxes, cfg=cfg, steps=args.steps,
+        batch=min(batch, len(images)), lr=lr, seed=cfg.seed,
+        init_params=init, augment=not args.no_augment, device=args.device,
+    )
+    save_params(args.out, bridge.tree_from_module(model))
+    print(
+        f"训练完成: {args.steps} 步 (loss {losses[0]:.3f} → {losses[-1]:.3f}) "
+        f"→ {args.out} (用 --det-model {args.out} 加载)"
+    )
+    return {
+        "mode": "train-detector",
+        "steps": args.steps,
+        "images": len(images),
+        "boxes": n_boxes,
+        "loss_first": losses[0],
+        "loss_last": losses[-1],
+        "out": args.out,
+    }
+
+
+def _eval_detection(args, detector):
+    """Detection AP against a ground-truth JSON (eval --det-gt gt.json):
+    {"relative/or/abs/image/path": [[x1,y1,x2,y2], ...], ...} in
+    original-image pixels. Detections run through
+    FaceDetector.detect_batch and score via the VOC/WIDER protocol
+    (train/eval.py detection_average_precision)."""
+    from facerecognizeonnx_tpu_torch.train.eval import detection_average_precision
+
+    root = args.images[0]
+    with open(args.det_gt) as f:
+        gt = json.load(f)
+    names, images, gt_boxes = [], [], []
+    for fname, boxes in sorted(gt.items()):
+        path = fname if os.path.isabs(fname) else os.path.join(root, fname)
+        image = imread(path)
+        if image is None:
+            print(f"跳过不可读图像: {path}")
+            continue
+        names.append(fname)
+        images.append(image)
+        gt_boxes.append(boxes)
+    if not images:
+        print("没有可评测的图像")
+        return -1
+    per_image = detector.detect_batch(images)
+    records = []
+    for faces, boxes in zip(per_image, gt_boxes):
+        records.append(
+            {
+                "boxes": [
+                    [f.box[0], f.box[1], f.box[0] + f.box[2], f.box[1] + f.box[3]]
+                    for f in faces
+                ],
+                "scores": [f.score for f in faces],
+                "gt": boxes,
+            }
+        )
+    report = detection_average_precision(records, iou_threshold=args.det_iou)
+    report.update({"images": len(images), "iou_threshold": args.det_iou})
+    print(
+        f"检测评测: {len(images)} 图像, {report['n_gt']} 真值框, "
+        f"{report['n_det']} 检测框"
+    )
+    print(
+        f"AP@{args.det_iou:.2f}: {report['ap']:.4f}  "
+        f"precision: {report['precision']:.4f}  recall: {report['recall']:.4f}"
+    )
+    print(json.dumps(report))
+    return {"mode": "eval-detection", **report}
+
+
+def mode_eval(args):
+    """LFW-style verification evaluation on an identity-folder dataset
+    (root/<identity>/*.jpg): align every image the way serving does
+    (with --align), embed all crops in one data-parallel call, build
+    seeded genuine/impostor pairs (or read an LFW pairs.txt), and report
+    k-fold cross-validated accuracy (threshold selected on held-out
+    folds), the selected threshold on the (cos+1)/2 scale, and TAR@FAR
+    operating points. The best_threshold is usable directly as the
+    CLI/API match threshold."""
+    detector, recognizer = _load_models(args)
+    from facerecognizeonnx_tpu_torch.parallel.sharded_ops import sharded_batch_embed
+    from facerecognizeonnx_tpu_torch.train.data import IdentityFolderDataset
+    from facerecognizeonnx_tpu_torch.train.eval import (
+        pair_similarities,
+        tar_at_far,
+        verification_accuracy,
+    )
+
+    if args.det_gt:
+        return _eval_detection(args, detector)
+
+    cfg = detector.cfg
+    root = args.images[0]
+    ds = IdentityFolderDataset(
+        root, detector=detector if args.align else None, cfg=cfg,
+        min_images_per_id=1 if args.pairs_file else 2,
+    )
+
+    def embed(crops):
+        return sharded_batch_embed(recognizer.params, np.stack(crops), cfg,
+                                   device=args.device).cpu().numpy()
+
+    if args.pairs_file:
+        # standard LFW pairs.txt protocol: 3-token lines are genuine
+        # (Name n1 n2 → Name/Name_%04d.jpg), 4-token lines impostor
+        # (Name1 n1 Name2 n2); header/fold-count lines are skipped. File
+        # order is kept: the published fold structure is the
+        # cross-validation split (verification_accuracy splits contiguously)
+        def img(name, idx):
+            return os.path.join(root, name, f"{name}_{int(idx):04d}.jpg")
+
+        file_pairs = []
+        with open(args.pairs_file) as f:
+            for ln in f.read().splitlines():
+                parts = ln.split()
+                if len(parts) == 3:
+                    file_pairs.append((img(parts[0], parts[1]), img(parts[0], parts[2]), True))
+                elif len(parts) == 4:
+                    file_pairs.append((img(parts[0], parts[1]), img(parts[2], parts[3]), False))
+        if not file_pairs:
+            print(f"pairs 文件无有效行: {args.pairs_file}")
+            return -1
+        uniq = sorted({p for a, b, _ in file_pairs for p in (a, b)})
+        crops, row = [], {}
+        for path in uniq:
+            crop = ds.crop(path)
+            if crop is not None:
+                row[path] = len(crops)
+                crops.append(crop)
+        kept = [(a, b, s) for a, b, s in file_pairs if a in row and b in row]
+        dropped = len(file_pairs) - len(kept)
+        if dropped:
+            print(f"跳过 {dropped} 对 (图像缺失/不可读)")
+        if not kept:
+            print("没有可评测的图像对")
+            return -1
+        feats = embed(crops)
+        a = np.array([row[p[0]] for p in kept])
+        b = np.array([row[p[1]] for p in kept])
+        same = np.array([p[2] for p in kept])
+        genuine_n = int(same.sum())
+        impostor_n = len(kept) - genuine_n
+        n_images, n_ids = len(crops), ds.num_classes
+        sims = pair_similarities(feats[a], feats[b])
+    else:
+        if ds.num_classes < 2:
+            print(f"评测数据不足: {root} 下仅 {ds.num_classes} 个身份 (需要 ≥2)")
+            return -1
+
+        crops, labels = [], []
+        for path, label in ds.samples:
+            crop = ds.crop(path)
+            if crop is not None:
+                crops.append(crop)
+                labels.append(label)
+        labels = np.asarray(labels)
+        feats = embed(crops)
+
+        rng = np.random.default_rng(cfg.seed)
+        genuine = [
+            (i, j)
+            for label in np.unique(labels)
+            for rows in [np.flatnonzero(labels == label)]
+            for a, i in enumerate(rows)
+            for j in rows[a + 1:]
+        ]
+        half = max(1, min(args.pairs // 2, len(genuine)))
+        genuine = [genuine[k] for k in rng.permutation(len(genuine))[:half]]
+        impostor, seen, attempts = [], set(), 0
+        while len(impostor) < half and attempts < 100 * half:
+            attempts += 1
+            i, j = (int(v) for v in rng.integers(0, len(labels), 2))
+            key = (min(i, j), max(i, j))
+            if labels[i] != labels[j] and key not in seen:
+                seen.add(key)
+                impostor.append(key)
+        pairs = genuine + impostor
+        same = np.array([True] * len(genuine) + [False] * len(impostor))
+        a = np.array([p[0] for p in pairs])
+        b = np.array([p[1] for p in pairs])
+        genuine_n, impostor_n = len(genuine), len(impostor)
+        n_images, n_ids = len(crops), ds.num_classes
+        sims = pair_similarities(feats[a], feats[b])
+
+    n_folds = max(2, min(args.folds, len(sims) // 2))
+    report = verification_accuracy(sims, same, n_folds=n_folds)
+    if same.any() and (~same).any():  # TAR@FAR needs both pair classes
+        report.update(
+            {f"tar_at_far_{far:g}": tar_at_far(sims, same, far)["tar"] for far in (1e-2, 1e-3)}
+        )
+    report.update(
+        {
+            "identities": n_ids,
+            "images": n_images,
+            "genuine_pairs": genuine_n,
+            "impostor_pairs": impostor_n,
+            "n_folds": n_folds,
+            "aligned": bool(args.align),
+            "pairs_file": args.pairs_file,
+        }
+    )
+    print(
+        f"评测: {n_ids} 身份 / {n_images} 图像, "
+        f"{genuine_n} 同人对 + {impostor_n} 异人对 ({n_folds} 折)"
+    )
+    print(
+        f"准确率: {report['accuracy']:.4f} ± {report['accuracy_std']:.4f} "
+        f"(阈值 {report['best_threshold']:.3f})"
+    )
+    if "tar_at_far_0.01" in report:
+        print(
+            f"TAR@FAR=1e-2: {report['tar_at_far_0.01']:.4f}  "
+            f"TAR@FAR=1e-3: {report['tar_at_far_0.001']:.4f}"
+        )
+    print(json.dumps(report))
+    return {"mode": "eval", **report}
+
+
 def mode_doctor(args):
     """Environment diagnosis: the torch backend, the native runtime and
     its codecs, the kernel build cache, the packs' files, a gallery."""
@@ -788,7 +1129,8 @@ def main(argv=None):
         "int8 activation scales (default: synthetic noise)",
     )
     parser.add_argument("--detector", action="store_true",
-                        help="export: the detector (train: not ported yet)")
+                        help="export: the detector; train: fine-tune the detector "
+                        "(with --det-gt)")
     parser.add_argument(
         "--det-size", type=int, default=None,
         help="detector input size override (default 640, the reference's)",
@@ -813,21 +1155,40 @@ def main(argv=None):
                         help="webcam: enroll the first detected face automatically")
     parser.add_argument("--batch", type=int, default=None,
                         help="export out.frtz: the bundle's frame batch (default 8); "
-                        "train/eval (not ported yet)")
-    for flag, kw in (("--steps", dict(type=int, default=200)),
-                     ("--lr", dict(type=float, default=None)),
-                     ("--margin", dict(type=float, default=0.5)),
-                     ("--out", dict(default="trained_rec.npz")),
-                     ("--train-ckpt", dict(default=None)),
-                     ("--ckpt-every", dict(type=int, default=0)),
-                     ("--pairs", dict(type=int, default=2000)),
-                     ("--folds", dict(type=int, default=10)),
-                     ("--pairs-file", dict(default=None)),
-                     ("--det-gt", dict(default=None)),
-                     ("--det-iou", dict(type=float, default=0.5))):
-        parser.add_argument(flag, help="train/eval (not ported yet)", **kw)
-    parser.add_argument("--no-augment", action="store_true", help="train (not ported yet)")
-    parser.add_argument("--align", action="store_true", help="train/eval (not ported yet)")
+                        "train: batch size (default 32; 8 with --detector)")
+    parser.add_argument("--steps", type=int, default=200, help="train: steps")
+    parser.add_argument("--lr", type=float, default=None,
+                        help="train: peak LR — warmup-cosine for the recognizer (default "
+                        "0.02), flat Adam for --detector (default 0.002)")
+    parser.add_argument("--margin", type=float, default=0.5,
+                        help="train: ArcFace additive angular margin")
+    parser.add_argument("--no-augment", action="store_true",
+                        help="train: disable the default train-time augmentation (random "
+                        "horizontal flip + crop jitter); eval is always augmentation-free")
+    parser.add_argument("--out", default="trained_rec.npz",
+                        help="train: output .npz weights (--rec-model loadable)")
+    parser.add_argument("--train-ckpt", default=None,
+                        help="train: resume checkpoint path (default <out>.ckpt; the "
+                        "port's own format, utils/checkpoint.py)")
+    parser.add_argument("--ckpt-every", type=int, default=0,
+                        help="train: checkpoint every N steps (0 = final only)")
+    parser.add_argument("--align", action="store_true",
+                        help="train/eval: detect+align dataset crops through the loaded "
+                        "detector instead of letterbox resize")
+    parser.add_argument("--pairs", type=int, default=2000,
+                        help="eval: total verification pairs (half genuine)")
+    parser.add_argument("--folds", type=int, default=10,
+                        help="eval: cross-validation folds (LFW protocol)")
+    parser.add_argument("--pairs-file", default=None,
+                        help="eval: standard LFW pairs.txt (3-token genuine / 4-token "
+                        "impostor lines, Name/Name_%%04d.jpg under the root; file order "
+                        "defines the folds) instead of seeded pair sampling")
+    parser.add_argument("--det-gt", default=None,
+                        help="eval: detection-AP mode (train --detector: the labels) — "
+                        "ground-truth JSON mapping image path (relative to the root arg) "
+                        "to [[x1,y1,x2,y2], ...]")
+    parser.add_argument("--det-iou", type=float, default=0.5,
+                        help="eval --det-gt: IoU threshold for a true positive")
     args = parser.parse_args(argv)
     args.device = "cpu" if args.cpu else "cuda"
 
@@ -874,10 +1235,12 @@ def _run(args):
         "identify": mode_identify,
         "serve": mode_serve,
         "export": mode_export,
+        "train": mode_train,
+        "eval": mode_eval,
         "doctor": mode_doctor,
     }
     need = {"detect": 1, "compare": 2, "simple": 2, "webcam": 0, "enroll": 1,
-            "identify": 1, "serve": 0, "export": 1, "doctor": 0}
+            "identify": 1, "serve": 0, "export": 1, "train": 1, "eval": 1, "doctor": 0}
     if len(args.images) < need[args.mode]:
         print("无效的命令或参数")
         return -1

@@ -33,18 +33,29 @@ def recognizer_module_for(model: torch.nn.Module):
     raise TypeError(f"not a recognizer of the port: {type(model).__name__}")
 
 
-def recognizer_apply(model, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+def recognizer_apply(model, x: torch.Tensor, compute_dtype: torch.dtype,
+                     train: bool = False, stats_group=None):
     """A recognizer's forward pass: (B, S, S, 3) → (B, 512) float32. The
     model is a native recognizer or an `onnx_import.OnnxRunner` of kind
-    "arcface" (a recognizer .onnx that no native mapper fits)."""
+    "arcface" (a recognizer .onnx that no native mapper fits).
+
+    train=True (native, unfolded recognizers) returns (features, batch
+    stats by JAX path) for `layers.update_bn_stats`; `stats_group`
+    averages the statistics over its ranks (`layers.train_apply`)."""
     # imported here: config imports this package while it is being built
     from facerecognizeonnx_tpu_torch.onnx_import import OnnxRunner
 
     if isinstance(model, OnnxRunner):
         if model.kind != "arcface":
             raise TypeError(f"an ONNX runner of kind {model.kind!r} is not a recognizer")
+        if train:
+            raise TypeError("train mode needs a native recognizer, not an ONNX runner")
     else:
         recognizer_module_for(model)
+    if train:
+        from facerecognizeonnx_tpu_torch.models.layers import train_apply
+
+        return train_apply(model, lambda: model(x, compute_dtype), stats_group)
     return model(x, compute_dtype)
 
 

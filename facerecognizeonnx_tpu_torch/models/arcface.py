@@ -82,6 +82,19 @@ class IResNet(nn.Module):
             out = self.features_bn(out)
         return out.to(torch.float32)
 
+    @staticmethod
+    def bn_path(name: str) -> str:
+        """A BatchNorm's module name → its JAX param path
+        ("stages.1.0.unit2.bn" → "layer2/0/bn3")."""
+        if name == "stem.bn":
+            return "bn1"
+        parts = name.split(".")
+        if parts[0] == "stages":
+            leaf = {"bn1": "bn1", "unit1.bn": "bn2", "unit2.bn": "bn3",
+                    "down.bn": "down_bn"}[".".join(parts[3:])]
+            return f"layer{int(parts[1]) + 1}/{parts[2]}/{leaf}"
+        return name  # bn2, features_bn
+
 
 def fold_inference_params(model: IResNet) -> IResNet:
     """A copy of `model` with every POST-conv / post-FC BatchNorm folded

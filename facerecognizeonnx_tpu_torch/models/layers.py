@@ -12,13 +12,24 @@ layers are kept:
   - batch_norm: f32 math, result cast back to the input dtype;
   - prelu: in the input (compute) dtype;
   - linear: compute-dtype operands, f32 products and sums, f32 output.
+
+Train mode (`train_apply`): every BatchNorm of a forward normalizes with
+the batch's own statistics, the biased variance over N, H, W in float32
+(JAX's `batch_norm(train=True)`), optionally averaged over the ranks of
+a process group, and the statistics come back keyed by the JAX param
+paths ("layer2/0/bn3", "head/convs/1/bn") for `update_bn_stats`.
+`make_trainable` turns a module's weights, BN affines (and SCRFD's
+per-stride scales) into trainable parameters; the BN running statistics
+stay buffers. A module built for inference is frozen and unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -146,7 +157,8 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (running stats) over channel dim 1."""
+    """BatchNorm over channel dim 1: running stats, or inside `train_apply`
+    the batch's own (recorded at the module's first call of the forward)."""
 
     def __init__(self, scale, bias, mean, var):
         super().__init__()
@@ -156,7 +168,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", var)
 
     def forward(self, x):
-        return batch_norm(x, self.scale, self.bias, self.mean, self.var)
+        if _TRAIN.stats is None:
+            return batch_norm(x, self.scale, self.bias, self.mean, self.var)
+        y, (mean, var) = batch_norm_train(x, self.scale, self.bias, group=_TRAIN.group)
+        # a BN shared across calls (SCRFD's head, one call per stride)
+        # keeps its first call's statistics, as the JAX model does
+        _TRAIN.stats.setdefault(self, (mean.detach(), var.detach()))
+        return y
 
 
 class PReLU(nn.Module):
@@ -206,3 +224,127 @@ class ConvUnit(nn.Module):
         if self.bn is None:
             return self
         return ConvUnit(self.conv.folded(self.bn), None, self.act)
+
+
+# ---------------------------------------------------------------- train mode
+
+
+class _TrainMode(threading.local):
+    stats = None  # {BatchNorm: (mean, var)} while a train-mode forward runs
+    group = None  # the process group whose batches the statistics span
+
+
+_TRAIN = _TrainMode()
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean over the ranks of `group`, with the gradient of that mean:
+    the backward averages the ranks' gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
+
+
+def batch_norm_train(x, scale, bias, eps: float = BN_EPS, group=None):
+    """Train-mode BatchNorm over channel dim 1 in float32: the batch mean
+    and the biased variance over every other dim (two passes, as
+    `jnp.var`), averaged over the ranks of `group` when given (equal
+    per-rank batches: the statistics of the global batch). Returns
+    (y in x's dtype, (mean, var))."""
+    xf = x.to(torch.float32)
+    dims = [0] + list(range(2, x.dim()))
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    mean = xf.mean(dims)
+    if group is not None:
+        mean = _AllReduceMean.apply(mean, group)
+    c = xf - mean.view(shape)
+    var = (c * c).mean(dims)
+    if group is not None:
+        var = _AllReduceMean.apply(var, group)
+    inv = (torch.rsqrt(var + eps) * scale).view(shape)
+    y = c * inv + bias.view(shape)
+    return y.to(x.dtype), (mean, var)
+
+
+def bn_paths(model: nn.Module) -> Dict[str, BatchNorm]:
+    """{JAX param path: BatchNorm} of a model of the port; the model's
+    class maps its module names to JAX paths (`bn_path`)."""
+    return {
+        type(model).bn_path(name): m
+        for name, m in model.named_modules()
+        if isinstance(m, BatchNorm)
+    }
+
+
+def check_unfolded(model: nn.Module) -> None:
+    """Train mode needs every BatchNorm: a model whose post-conv / head BNs
+    were folded into its weights is inference-only, as in the JAX package."""
+    folded = getattr(model, "features_bn", 0) is None or any(
+        isinstance(m, ConvUnit) and m.bn is None for m in model.modules()
+    )
+    if folded:
+        raise ValueError(
+            f"{type(model).__name__} has folded BatchNorms: train mode needs the "
+            "unfolded model (its .npz tree, not fold_inference_params)"
+        )
+
+
+def train_apply(model: nn.Module, fn: Callable, group=None):
+    """Run `fn()`, a forward of `model`, in train mode. Returns (fn's
+    output, {JAX path: (mean, var)}) with the batch statistics detached;
+    `group` averages them over its ranks (autograd flows through)."""
+    check_unfolded(model)
+    prev = (_TRAIN.stats, _TRAIN.group)
+    _TRAIN.stats, _TRAIN.group = {}, group
+    try:
+        out = fn()
+        seen = _TRAIN.stats
+    finally:
+        _TRAIN.stats, _TRAIN.group = prev
+    return out, {path: seen[bn] for path, bn in bn_paths(model).items() if bn in seen}
+
+
+@torch.no_grad()
+def update_bn_stats(model: nn.Module, stats: Dict, momentum: float = 0.0) -> nn.Module:
+    """Fold batch stats (from `train_apply`) into the BN running stats, in
+    place. momentum=0 replaces outright (the detector's single-shot
+    update); momentum m keeps m*old + (1-m)*new (the trainer's EMA)."""
+    paths = bn_paths(model)
+    for key, (mean, var) in stats.items():
+        bn = paths[key]
+        bn.mean.copy_(momentum * bn.mean + (1 - momentum) * mean)
+        bn.var.copy_(momentum * bn.var + (1 - momentum) * var)
+    return model
+
+
+def make_trainable(model: nn.Module) -> nn.Module:
+    """In place: every parameter requires grad, each BatchNorm's scale and
+    bias become parameters (its running stats stay buffers), and a model
+    with a `trainable_extras` hook (SCRFD's per-stride scales) adds its
+    own. Raises on a folded model. Returns the model."""
+    check_unfolded(model)
+    for m in model.modules():
+        if isinstance(m, BatchNorm) and not isinstance(m.scale, nn.Parameter):
+            for k in ("scale", "bias"):
+                t = m._buffers.pop(k)
+                setattr(m, k, nn.Parameter(t))
+    if hasattr(model, "trainable_extras"):
+        model.trainable_extras()
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def trainable_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: parameter} of the tensors a train step updates."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}

@@ -102,6 +102,17 @@ class MobileFaceNet(nn.Module):
             out = self.features_bn(out)
         return out.to(torch.float32)
 
+    @staticmethod
+    def bn_path(name: str) -> str:
+        """A BatchNorm's module name → its JAX param path
+        ("body.3.dw.bn" → "body/3/dw_bn", "gdc.bn" → "gdc_dw/bn")."""
+        parts = name.split(".")
+        if parts[0] == "body":
+            return f"body/{parts[1]}/{parts[2]}_bn"
+        if parts[0] == "gdc":
+            return "gdc_dw/bn"
+        return "/".join(parts)  # stem/bn, stem_dw/bn, conv_sep/bn, features_bn
+
 
 def fold_inference_params(model: MobileFaceNet) -> MobileFaceNet:
     """A copy of `model` with every BatchNorm folded into its conv or the

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from facerecognizeonnx_tpu_torch.models.layers import Conv, ConvUnit
+from facerecognizeonnx_tpu_torch.models.layers import Conv, ConvUnit, train_apply
 
 STRIDES = (8, 16, 32)
 NUM_ANCHORS = 2
@@ -159,8 +159,14 @@ class SCRFD(nn.Module):
         self.scales = dict(scales)
 
     def forward(
-        self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+        self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+        train: bool = False,
     ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """With train=True, returns (outputs, batch stats by JAX path): the
+        BNs normalize with batch statistics, a shared head BN with those of
+        stride 8 (`layers.train_apply`)."""
+        if train:
+            return train_apply(self, lambda: self.forward(x, compute_dtype))
         dt = compute_dtype
         x = x.to(dt)
         if self.s2d:
@@ -198,6 +204,29 @@ class SCRFD(nn.Module):
             kps = rows_of(self.kps(h, dt), 10) * scale
             outputs[stride] = (scores, bbox, kps)
         return outputs
+
+    @staticmethod
+    def bn_path(name: str) -> str:
+        """A BatchNorm's module name → its JAX param path
+        ("backbone.2.dw.bn" → "backbone/2/dw_bn", "head_convs.1.bn" →
+        "head/convs/1/bn")."""
+        parts = name.split(".")
+        if parts[0] == "backbone":  # a dense block's unit is the block itself
+            return f"backbone/{parts[1]}/" + ("bn" if len(parts) == 3 else f"{parts[2]}_bn")
+        if parts[0] == "head_convs":
+            return f"head/convs/{parts[1]}/bn"
+        return "/".join(parts)  # stem/bn
+
+    def trainable_extras(self) -> None:
+        """The per-stride output scales as parameters (`make_trainable`):
+        the JAX tree's "scales" leaves are trained with the rest."""
+        if not hasattr(self, "scale_params"):
+            dev = self.cls.weight.device
+            self.scale_params = nn.ParameterDict({
+                f"s{s}": nn.Parameter(torch.tensor(float(v), dtype=torch.float32, device=dev))
+                for s, v in self.scales.items()
+            })
+            self.scales = {s: self.scale_params[f"s{s}"] for s in self.scales}
 
 
 def fold_inference_params(model: SCRFD) -> SCRFD:

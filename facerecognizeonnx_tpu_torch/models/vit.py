@@ -135,6 +135,12 @@ class ViT(nn.Module):
             out = self.features_bn(out)
         return out.to(torch.float32)
 
+    @staticmethod
+    def bn_path(name: str) -> str:
+        """A BatchNorm's module name → its JAX param path (the head BN1d,
+        "features_bn", is the only one)."""
+        return name
+
 
 def fold_inference_params(model: ViT) -> ViT:
     """A copy of `model` with the head BN1d folded into the FC (the

@@ -213,9 +213,10 @@ def _slice(tree, specs, idx: int, n: int):
     return tree
 
 
-def local_module(params: Dict, idx: int, n: int, axis: str = "model", device="cpu"):
+def local_module(params: Dict, idx: int, n: int, axis: str = "model", device="cuda"):
     """Shard `idx` of `n` of a packed tree as a module of the port holding
-    only its slices (a ViT's q / k / v slices join into its qkv)."""
+    only its slices (a ViT's q / k / v slices join into its qkv), on
+    `device` (the card unless the caller asks for the CPU)."""
     from facerecognizeonnx_tpu_torch.bridge import params_from_numpy
 
     local = _slice(params, recognizer_param_specs(params, axis), idx, n)

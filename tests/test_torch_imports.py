@@ -73,6 +73,13 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.parallel.tensor_parallel",
     "facerecognizeonnx_tpu_torch.parallel.expert_parallel",
     "facerecognizeonnx_tpu_torch.parallel.pipeline_stage",
+    "facerecognizeonnx_tpu_torch.train",
+    "facerecognizeonnx_tpu_torch.train.arcface_loss",
+    "facerecognizeonnx_tpu_torch.train.trainer",
+    "facerecognizeonnx_tpu_torch.train.fit",
+    "facerecognizeonnx_tpu_torch.train.data",
+    "facerecognizeonnx_tpu_torch.train.detector",
+    "facerecognizeonnx_tpu_torch.train.eval",
 ]
 
 REPO = Path(__file__).resolve().parent.parent

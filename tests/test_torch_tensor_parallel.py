@@ -128,7 +128,7 @@ def test_weights_actually_sharded(trees, key):
     packed = pack_tp_params(trees[key])
     full = bridge.params_from_numpy(trees[key], device="cpu")
     for idx in range(2):
-        local = local_module(packed, idx, 2)
+        local = local_module(packed, idx, 2, device="cpu")
         if key == "vit":
             blk, fblk = local.blocks[0], full.blocks[0]
             assert blk.qkv.weight.shape == (fblk.qkv.weight.shape[0] // 2,

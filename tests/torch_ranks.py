@@ -458,6 +458,63 @@ def check_service(inp, rank, world):
     return out
 
 
+# --- training: the partial-FC ArcFace step over data × model meshes
+
+
+def check_train(inp, rank, world):
+    """One SGD step from each JAX state in `inp` ("s0".."s2") on each mesh
+    shape (every rank in each), and a checkpoint round trip on the last
+    mesh: each rank returns its losses, backbone trees, classifier blocks
+    and traces after each step."""
+    import collections
+    import tempfile
+
+    import torch
+
+    from facerecognizeonnx_tpu_torch import bridge
+    from facerecognizeonnx_tpu_torch.parallel.mesh import make_mesh
+    from facerecognizeonnx_tpu_torch.train.trainer import make_train_step
+    from facerecognizeonnx_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+
+    cfg = _cfg(rec_input_size=32)
+    trace_state = collections.namedtuple("TraceState", "trace")
+
+    def from_jax(s, mesh):
+        return bridge.train_state_from_numpy(
+            s["params"], s["classifier"], (trace_state((s["trace"], s["trace_cls"])), ()),
+            s["step"], mesh=mesh)
+
+    out = {}
+    for name, shape in (("dp", (world, 1)), ("mp", (1, world)), ("dxm", (2, world // 2))):
+        mesh = make_mesh(("data", "model"), shape, device="cpu")
+        step = make_train_step(mesh, cfg, lr=float(inp["lr"]))
+        out[name] = {}
+        for k in range(3):
+            state, loss = step(from_jax(inp[f"s{k}"], mesh), inp["images"], inp["labels"])
+            out[name][f"s{k}"] = {
+                "loss": np.float32(loss),
+                "params": bridge.tree_from_module(state.model),
+                "classifier": _np(state.classifier),
+                "trace": bridge.tree_from_tensors(state.model, state.opt_state["trace"]),
+                "trace_cls": _np(state.opt_state["trace"]["classifier"]),
+                "step": _np(state.step),
+            }
+    # one directory for all ranks: rank 0 makes it, the others read its name
+    obj = [tempfile.mkdtemp() if rank == 0 else None]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    path = os.path.join(obj[0], "state.ckpt")
+    save_train_state(path, state, mesh=mesh)
+    back = load_train_state(path, from_jax(inp["s0"], mesh), mesh=mesh)
+
+    def leaves(s):
+        return (list(s.model.state_dict().values()) + [s.classifier, s.step]
+                + list(s.opt_state["trace"].values()))
+
+    out["ckpt_equal"] = np.int32(all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                                       leaves(state))))
+    return out
+
+
 CHECKS = {
     "mesh": check_mesh,
     "search": check_search,
@@ -472,6 +529,7 @@ CHECKS = {
     "ep": check_ep,
     "enroll_experts": check_enroll_experts,
     "service": check_service,
+    "train": check_train,
 }
 
 
