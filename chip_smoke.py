@@ -124,8 +124,10 @@ Phases (any failure exits non-zero; there is no CPU path):
      multi-probe, webcam --track --enroll-first, doctor), each stdout
      parsed as one JSON document, detect and compare with `imwrite`
      replaced by a recorder (the GPU host has neither cv2 nor PIL), then
-     `python3 -m facerecognizeonnx_tpu_torch serve` in its own process:
-     POST /enroll, SIGTERM, exit 0 with the gallery saved; wall times.
+     `python3 -m facerecognizeonnx_tpu_torch serve` in its own process
+     (through the CLI's launcher: its startup line `进程组: nccl × 1
+     rank`): POST /enroll, SIGTERM, exit 0 with the gallery saved; wall
+     times.
      Images reach the port as PNG bytes: the GPU host's native runtime
      builds without codecs, so `io.imageio.decode_png` reads them
  13. ONNX interop at buffalo_sc width (`phase_onnx`): (a) phase 5's
@@ -196,7 +198,13 @@ Phases (any failure exits non-zero; there is no CPU path):
      bit-equal to the eager `frames_to_features` / `frames_to_matches`;
      one warp_xm, one pyramid and one nms_greedy launch per call (the
      Python counters, and the device counters over N_DP_CALLS calls); dp
-     and eager steps in turns, median of 10 with min-max; (d)
+     and eager steps in turns, median of 10 with min-max; (c2) the
+     bucketed embed's mesh form (`BucketedEmbedPipeline(mesh=data,
+     search_top_k=5)`) bit-equal to the bucketed step without a mesh in
+     bf16, and in float32 (TF32 off) within rtol 1e-4 / atol 1e-4 of
+     the dp step with search (the JAX dryrun's bar); `make_dp_program`
+     with a `quantize_recognizer` (w8a8) copy bit-equal to the eager w8a8
+     step; one launch of each kernel per call of each; (d)
      `sharded_batch_embed` bit-equal to `embed_crops` on 64 IResNet-50
      crops (bf16), `tp_embed_crops` within rtol 1e-4 / atol 1e-5 in
      float32 with TF32 off; (e) `ep_embed_crops` with two seeded
@@ -205,8 +213,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      rerun; (f) `IdentifyService(mesh=1, sharded=True)` against the
      plain service on 16 requests: top-1 names equal, sims within 1e-5;
      (g) one line: the pipeline stage is held on the CPU only (its stage
-     axis is 2, and NCCL refuses two ranks on one GPU); the group is
-     destroyed at the end
+     axis is 2, and NCCL refuses two ranks on one GPU); the group lives
+     on into phase 17
  17. training on the card (`phase_train`): (a) an identity folder of 8
      ids × 4 seeded noise PNGs of 640x480 in a temp directory, detected
      by phase 5's SCRFD-500m (`bias_detector`) and aligned through
@@ -219,7 +227,12 @@ Phases (any failure exits non-zero; there is no CPU path):
      their scale, the backbone's update and momentum within UPDATE_BAR
      relative L2 (a PReLU input within float32 noise of 0 may take the
      other side of the kink); remat=True against plain over 2 steps,
-     loss within rel 1e-5; (c) speed at B=128, C=93,431 (arcface_torch's
+     loss within rel 1e-5; (b2) the step on a (1, 1) ("data", "model")
+     mesh of phase 16's one-rank NCCL group bit-equal to the mesh=None
+     step on the same state and batch (float32, TF32 off, cuDNN
+     deterministic: the backward's convolutions otherwise may differ
+     run to run), and `IdentityFolderDataset.load_crops` over that mesh:
+     its crops equal (a)'s, one launch of each kernel per image; (c) speed at B=128, C=93,431 (arcface_torch's
      ms1mv3_r50 per-GPU batch and class count), TF32 as the port leaves
      it: ms/step median of 10 after 3 warm-up steps with min-max,
      images/s, peak memory, the loss on the one batch falling; (d) `fit`
@@ -230,13 +243,16 @@ Phases (any failure exits non-zero; there is no CPU path):
      one step at B=2 on the card against the CPU (TF32 off): loss within
      rel 1e-5, ≥ 99.9% of the weights within 1e-6 + 1e-5·|w|, all
      within 2·lr; (f) the CLI: `train <root> --align --steps 3 --batch 8`
-     and `eval <root> --align --json` in subprocesses, then `enroll` and
-     `identify --rec-model` of the trained `.npz` in process
+     and `eval <root> --align --json` in subprocesses (`train` through
+     the CLI's launcher: `进程组: nccl × 1 rank`, mesh data=1), then
+     `enroll` and `identify --rec-model` of the trained `.npz` in process
  18. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
-     nms_greedy also give `dp_launches`, their launches in one call of
-     the dp step, and `train_launches`, their launches while phase 17
-     builds its crops), the nvidia-smi line, and last {"ok": true,
-     "device": {...}}
+     nms_greedy also give their launches on each other path:
+     `dp_launches` (one call of the dp step), `bucketed_launches` (one
+     call of the bucketed mesh form), `w8a8_dp_launches` (one call of
+     the w8a8 dp step), `train_launches` (phase 17's crops) and
+     `train_mesh_launches` (the crops over the (1, 1) mesh)), the
+     nvidia-smi line, and last {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; launches made to compare a kernel with its plain
@@ -1896,11 +1912,13 @@ def phase_serving(dev, rng, det, rec, video_hw=(480, 640), cli_args=()):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__)),
         )
-        seen, t_models = [], None
+        seen, t_models, group_line = [], None, ""
         try:
             port = None
             for line in proc.stdout:
                 seen.append(line)
+                if line.startswith("进程组: "):
+                    group_line = line.strip()
                 if t_models is None and "所有模型加载成功" in line:
                     t_models = time.perf_counter()
                 m = re.search(r"http://[0-9.]+:(\d+)", line)
@@ -1908,6 +1926,8 @@ def phase_serving(dev, rng, det, rec, video_hw=(480, 640), cli_args=()):
                     port = int(m.group(1))
                     break
             assert port and t_models, "".join(seen)[-3000:]
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            assert group_line.startswith(f"进程组: {backend} × 1 rank (rank 0:"), group_line
             t_up = time.perf_counter()
             served = IdentifyClient("127.0.0.1", port, timeout=300).enroll("alice", pngs[3])
             t_answer = time.perf_counter()
@@ -1928,7 +1948,7 @@ def phase_serving(dev, rng, det, rec, video_hw=(480, 640), cli_args=()):
         + f"; identify: each probe's top label its own enrolled name; doctor platform "
         f"{dev.type}; "
         f"launches {cli_counts} | `python3 -m facerecognizeonnx_tpu_torch serve` in its own "
-        f"process: start -> models loaded {t_models - t0:.2f} s, -> listening {t_up - t0:.2f} s, "
+        f"process ('{group_line}'): start -> models loaded {t_models - t0:.2f} s, -> listening {t_up - t0:.2f} s, "
         f"-> first answer (POST /enroll) "
         f"{t_answer - t0:.2f} s; SIGTERM -> exit 0 in {t_exit - t_answer:.2f} s, the gallery "
         f"saved with the name | phase {time.perf_counter() - t_phase:.1f} s | card: "
@@ -2597,14 +2617,6 @@ PARALLEL_SEARCH_BAR = 1.67e-6  # the gallery kernel's sims bar at these shapes
 N_DP_CALLS = 5
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _timed_in_turns(fns: dict, rounds=10) -> dict:
     """Host clock around synchronized calls, the callables in turns:
     name → (median, min, max) ms."""
@@ -2625,7 +2637,7 @@ def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
     import torch.distributed as dist
 
     from facerecognizeonnx_tpu_torch.parallel import mesh as pmesh
-    from facerecognizeonnx_tpu_torch.parallel.distributed import init_distributed
+    from facerecognizeonnx_tpu_torch.parallel.distributed import free_port, init_distributed
     from facerecognizeonnx_tpu_torch.parallel.expert_parallel import ep_embed_crops
     from facerecognizeonnx_tpu_torch.parallel.sharded_ops import (
         make_dp_program,
@@ -2635,9 +2647,14 @@ def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
     from facerecognizeonnx_tpu_torch.parallel.tensor_parallel import tp_embed_crops
 
     # ---- (a) a real NCCL group of one rank, through the launcher variables
-    os.environ.update(COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}", NUM_PROCESSES="1",
-                      PROCESS_ID="0")
-    init_distributed(device="cuda")
+    launcher = dict(COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}", NUM_PROCESSES="1",
+                    PROCESS_ID="0")
+    os.environ.update(launcher)
+    try:
+        init_distributed(device="cuda")
+    finally:  # the CLI processes of phase 17 start groups of their own
+        for key in launcher:
+            os.environ.pop(key)
     backend, world = dist.get_backend(), dist.get_world_size()
     assert backend == "nccl" and world == 1, (backend, world)
     data = pmesh.make_mesh(("data",), device="cuda")
@@ -2716,6 +2733,55 @@ def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
         f"eager {fmt['eager']} | dp+search {fmt['dp_search']} | eager+search "
         f"{fmt['eager_search']}")
 
+    # ---- (c2) the bucketed embed's mesh form, and the dp step of a w8a8 recognizer
+    with torch.no_grad():
+        pipes = {name: bucketed.BucketedEmbedPipeline(det, rec, cfg, max_faces_embed=K,
+                                                      search_top_k=top_k, mesh=m, device=dev)
+                 for name, m in (("mesh", data), ("plain", None))}
+        outs = {}
+        for name, pipe in pipes.items():
+            pipe(frames, bank, n_rows)  # the first step guesses full occupancy
+            reset_counts()
+            outs[name] = pipe(frames, bank, n_rows)
+            torch.cuda.synchronize()
+            if name == "mesh":
+                b_counts = read_counts()
+        for a, b in zip(tuple(outs["mesh"][0]) + outs["mesh"][1:],
+                        tuple(outs["plain"][0]) + outs["plain"][1:]):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), \
+                "the bucketed mesh form differs from the bucketed step"
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        with tf32_off():
+            m32, _ = make_dp_program(det, rec, cfg32, mesh=data, max_faces_embed=K,
+                                     search_top_k=top_k)
+            b32 = bucketed.BucketedEmbedPipeline(det, rec, cfg32, max_faces_embed=K,
+                                                 search_top_k=top_k, mesh=data, device=dev)
+            b32(frames, bank, n_rows)
+            got32, want32 = b32(frames, bank, n_rows), m32(frames, bank, n_rows)
+        assert torch.equal(got32[0].valid, want32[0].valid), "bucketed masks differ (f32)"
+        torch.testing.assert_close(got32[1], want32[1], rtol=1e-4, atol=1e-4)
+        b_err = float((got32[1] - want32[1]).abs().max())
+        calib = torch.from_numpy(np.random.default_rng(9).uniform(-1, 1, (8, 112, 112, 3))
+                                 .astype(np.float32)).to(dev)
+        qrec = quant.quantize_recognizer(rec, calib, cfg.torch_compute_dtype)
+        qprog, _ = make_dp_program(det, qrec, cfg, mesh=data, max_faces_embed=K)
+        reset_counts()
+        q_dets, q_feats = qprog(frames)
+        torch.cuda.synchronize()
+        q_counts = read_counts()
+        e_dets, e_feats = frames_to_features(det, qrec, frames, cfg, K)
+        for a, b in zip(tuple(q_dets) + (q_feats,), tuple(e_dets) + (e_feats,)):
+            assert torch.equal(a, b), "the w8a8 dp step differs from the eager w8a8 step"
+    for counts in (b_counts, q_counts):
+        assert all(counts[n] == 1 for n in ("warp_xm", "warp_xm_pyramid", "nms_greedy")), counts
+    log(f"BucketedEmbedPipeline(mesh=1-rank 'data', search_top_k={top_k}) bit-equal to the "
+        f"bucketed step without a mesh (bf16, bucket {pipes['mesh'].last_bucket}, "
+        f"{int(outs['mesh'][-1])} faces); in float32 (TF32 off) against make_dp_program("
+        f"search_top_k={top_k}): masks equal, features max|d| {b_err:.3g} (bar rtol 1e-4 / atol "
+        f"1e-4, the JAX dryrun's); launches in one call {b_counts} | make_dp_program with a "
+        f"quantize_recognizer (w8a8) copy bit-equal to the eager w8a8 step; launches in one "
+        f"call {q_counts}")
+
     # ---- (d) sharded_batch_embed and tp_embed_crops on one rank, B=64
     crops = torch.from_numpy(rng.integers(0, 256, (64, 112, 112, 3), dtype=np.uint8)).to(dev)
     with torch.no_grad():
@@ -2777,9 +2843,11 @@ def phase_parallel(dev, rng, frames, det, rec, bank, n_rows, K, top_k, cfg):
     # ---- (g) the pipeline stage
     log("pipelined_frames_to_features: its stage axis must be 2 and NCCL refuses two ranks "
         "on one GPU, so it is held on the CPU only (tests/test_torch_pipeline_stage.py, "
-        "4 Gloo ranks)")
-    dist.destroy_process_group()
-    return {n: dp_counts[n] for n in ("warp_xm", "warp_xm_pyramid", "nms_greedy")}
+        "4 Gloo ranks; tools/multichip_parallel.py on four cards)")
+    kernels = ("warp_xm", "warp_xm_pyramid", "nms_greedy")
+    return {form: {n: counts[n] for n in kernels}
+            for form, counts in (("dp", dp_counts), ("bucketed", b_counts),
+                                 ("w8a8_dp", q_counts))}
 
 
 # ---------------------------------------------------------------- phase 17: training
@@ -2935,6 +3003,40 @@ def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch
         f"momentum {errs['momentum']:.2e} rel L2 (bar {UPDATE_BAR:g}); remat vs plain, 2 "
         f"steps: loss rel {remat_rel:.2e} (bar 1e-5)")
 
+    # ---- (b2) the mesh form: phase 16's one-rank group, a (1, 1) ("data", "model") mesh
+    from facerecognizeonnx_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(("data", "model"), (1, 1), device=dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the backward's convolutions repeat bit for bit
+    try:
+        with tf32_off():
+            stepped = {}
+            for name, m in (("mesh", mesh), ("plain", None)):
+                st = init_train_state(0, n_cls, rcfg, arch, mesh=m, device=dev)
+                st, loss = make_train_step(m, rcfg)(st, x8, y8)
+                stepped[name] = (train_arrays(st), float(loss))
+            del st
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (a, la), (b, lb) = stepped["mesh"], stepped["plain"]
+    mesh_equal = la == lb and all(np.array_equal(a[k], b[k]) for k in b)
+    assert mesh_equal, "the (1, 1)-mesh train step differs from the mesh=None step"
+    mds = IdentityFolderDataset(root, detector=det, cfg=cfg)
+    reset_counts()
+    n_mesh = mds.load_crops(mesh=mesh)
+    torch.cuda.synchronize()
+    mesh_counts = read_counts()
+    assert n_mesh == n_img and all(np.array_equal(mds.crop(p), c)
+                                   for (p, _), c in zip(ds.samples, crops))
+    for name in ("warp_xm", "warp_xm_pyramid", "nms_greedy"):
+        assert mesh_counts[name] == n_img, (name, mesh_counts)
+    log(f"train step on the (1, 1) mesh of the one-rank NCCL group (phase 16's), B=8, f32 TF32 "
+        f"off, cuDNN deterministic: loss {la:.6f}, every leaf bit-equal to the mesh=None step; "
+        f"load_crops over the mesh: {n_mesh} crops equal to (a)'s, launches warp_xm "
+        f"{mesh_counts['warp_xm']}, pyramid {mesh_counts['warp_xm_pyramid']}, nms_greedy "
+        f"{mesh_counts['nms_greedy']}")
+
     # ---- (c) speed at full width: B=128, C=93,431
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3046,6 +3148,10 @@ def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch
     train_s = time.perf_counter() - t0
     assert run.returncode == 0 and os.path.isfile(rec_npz), run.stdout[-3000:] + run.stderr[-3000:]
     assert "训练完成: 3 步" in run.stdout, run.stdout[-2000:]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    group_line = re.search(r"进程组: .*", run.stdout).group(0)
+    assert group_line.startswith(f"进程组: {backend} × 1 rank (rank 0:") and \
+        "mesh data=1" in run.stdout, run.stdout[-2000:]
     t0 = time.perf_counter()
     run = subprocess.run(base + ["eval", root, "--align", "--det-model", det_npz, "--rec-model",
                                  rec_npz, "--json", *sizes],
@@ -3061,7 +3167,8 @@ def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch
     _cli_json(["enroll", paths[0], paths[1], *common])
     doc, _ = _cli_json(["identify", paths[2], *common])
     assert doc["gallery_size"] == 2 and doc["faces"], doc
-    log(f"CLI: `train <root> --align --steps 3 --batch 8` {train_s:.1f} s (subprocess) wrote "
+    log(f"CLI: `train <root> --align --steps 3 --batch 8` {train_s:.1f} s (subprocess; "
+        f"'{group_line}', mesh data=1) wrote "
         f"{os.path.getsize(rec_npz) / 2**20:.0f} MiB; `eval <root> --align` {eval_s:.1f} s: "
         f"accuracy {report['accuracy']:.4f} over {report['genuine_pairs']}+"
         f"{report['impostor_pairs']} pairs; `identify --rec-model` of it: "
@@ -3069,7 +3176,12 @@ def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch
     import shutil
 
     shutil.rmtree(tmp, ignore_errors=True)
-    return {k: train_counts[k] for k in ("warp_xm", "warp_xm_pyramid", "nms_greedy")}
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # phase 16's
+    kernels = ("warp_xm", "warp_xm_pyramid", "nms_greedy")
+    return {form: {k: counts[k] for k in kernels}
+            for form, counts in (("train", train_counts), ("train_mesh", mesh_counts))}
 
 
 def main() -> int:
@@ -3268,11 +3380,17 @@ def main() -> int:
 
     # ---- 16. the parallel layer over a real NCCL group
     phase(16)
-    dp_launches = phase_parallel(dev, rng, frames, det, rec, bank, N_ROWS, K, TOP_K, cfg)
+    par_launches = phase_parallel(dev, rng, frames, det, rec, bank, N_ROWS, K, TOP_K, cfg)
 
     # ---- 17. training on the card
     phase(17)
     train_launches = phase_train(dev, rng, frames, det_tree, smi)
+    # launches per path and kernel: phase 16's dp, bucketed mesh and w8a8 dp
+    # calls, phase 17's crops (alone and over the mesh)
+    paths = {**par_launches, **train_launches}
+
+    def on_paths(name):
+        return {f"{path}_launches": counts[name] for path, counts in paths.items()}
 
     # ---- 18. result lines
     phase(18)
@@ -3281,15 +3399,15 @@ def main() -> int:
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm, with the "
                       "face table of _warp_affine_pallas_xm, :422-492)",
-             launches=main_launches, dp_launches=dp_launches["warp_xm"],
-             train_launches=train_launches["warp_xm"], **xm),
+             launches=main_launches, **on_paths("warp_xm"),
+             **xm),
         dict(name="warp_xm_pyramid", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:249 (build_pyramid_xm, the "
                       "prologue of _warp_affine_pallas_xm)",
              launches=main_counts["warp_xm_pyramid"],
-             dp_launches=dp_launches["warp_xm_pyramid"],
-             train_launches=train_launches["warp_xm_pyramid"], **pyramid),
+             **on_paths("warp_xm_pyramid"),
+             **pyramid),
         dict(name="warp_ym", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_ym.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:101 (_kernel)", **ym),
@@ -3300,8 +3418,8 @@ def main() -> int:
              source="facerecognizeonnx_tpu_torch/csrc/nms_greedy.cu",
              replaces="facerecognizeonnx_tpu/ops/nms.py:100-112 (nms_fixed's lax.while_loop; "
                       "no Pallas kernel)",
-             launches=main_counts["nms_greedy"], dp_launches=dp_launches["nms_greedy"],
-             train_launches=train_launches["nms_greedy"], **nms_entry),
+             launches=main_counts["nms_greedy"], **on_paths("nms_greedy"),
+             **nms_entry),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -31,10 +31,20 @@ without `--cpu` the CLI prints why and returns non-zero. `serve --aot
 b.frtz` answers /identify from a bundle; `enroll --experts a.npz,b.npz`
 routes each face to a specialist recognizer by yaw, `identify/serve
 --sharded` spread the gallery rows over the ranks of the process group,
-and `serve --dp N` serves data-parallel over its first N ranks (clamped
-to the group's size: one process drives one device); `train` runs its
-data-parallel mesh over the ranks of the process group (one rank: no
-mesh). Not ported, and raising NotImplementedError that names its
+and `serve --dp N` serves data-parallel over its first N ranks; `train`
+runs its ("data", "model") mesh of shape (data_dim, 1) over the ranks.
+
+Every card of the host: one process drives one device, so `train` and
+`serve` run one rank per card (`parallel.distributed.ranks_for`: `train`
+the most cards that divide its batch, `serve` min(--dp, cards), every
+card for --dp -1 or --sharded). The process becomes rank 0 and starts
+the others, this command again with COORDINATOR_ADDRESS / NUM_PROCESSES
+/ PROCESS_ID set (`parallel.distributed.start_ranks`); with those set
+already it joins that group instead, and with --cpu it is one Gloo rank.
+Only rank 0 prints, writes `--out` and serves HTTP: it relays every
+request and bank update to the others (`pipeline/relay.py`). A rank that
+fails ends the command non-zero with its output. The other modes run on
+one device. Not ported, and raising NotImplementedError that names its
 ROADMAP.md note: the mode bench.
 
 Headless by default: annotated images are written next to the input
@@ -57,6 +67,7 @@ import numpy as np
 
 from facerecognizeonnx_tpu_torch.config import PipelineConfig, auto_config, resolve_device
 from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, imread, imwrite
+from facerecognizeonnx_tpu_torch.parallel.distributed import EXIT_TIMEOUT_S
 from facerecognizeonnx_tpu_torch.pipeline.api import FaceDetector, FaceRecognizer
 from facerecognizeonnx_tpu_torch.utils.draw import draw_face_info
 
@@ -477,34 +488,45 @@ def mode_identify(args):
 def mode_serve(args):
     """HTTP identification service (pipeline/server.py): micro-batched
     /identify + /enroll over the loaded models and gallery. SIGTERM
-    stops accepting, drains the service worker and saves the gallery."""
+    stops accepting, drains the service worker and saves the gallery.
+    On N ranks rank 0 serves HTTP and relays every request and bank
+    update to the others, which run the same service and drop its
+    answers; its close drains them all, and only rank 0 saves."""
     import signal
     import threading
 
+    import torch.distributed as dist
+
     detector, recognizer = _load_models(args)
     from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
-    from facerecognizeonnx_tpu_torch.pipeline.server import make_server
+    from facerecognizeonnx_tpu_torch.pipeline.relay import follow, open_relay
+    from facerecognizeonnx_tpu_torch.pipeline.server import make_server, make_service
 
     bank = (GalleryBank.load(args.gallery, device=args.device) if os.path.exists(args.gallery)
             else GalleryBank(device=args.device))
+    rank, n_local = dist.get_rank(), dist.get_world_size()
     dp = args.dp or 0
     if dp != 0:
-        import torch.distributed as dist
-
-        # one process drives one device: the ranks of its process group
-        n_local = dist.get_world_size() if dist.is_initialized() else 1
         want = n_local if dp == -1 else dp
-        # the service meshes over ranks[:dp]; clamp so the startup line
-        # reports the mesh actually built (one card asked for --dp 8
-        # serves fine, on one device)
+        # the service meshes over ranks[:dp], one rank per card; clamp so
+        # the startup line reports the mesh actually built (one card asked
+        # for --dp 8 serves fine, on one device)
         dp = min(want, n_local)
         if dp < want:
             print(f"--dp {want} 请求, 本机只有 {n_local} 设备 → dp={dp}")
+    relay = open_relay() if n_local > 1 else None
+    kw = dict(sharded=args.sharded, aot=args.aot, mesh=dp if dp > 1 else None,
+              fuse_search=args.fuse_search, adaptive_embed=args.adaptive_embed,
+              device=args.device)
+    if rank != 0:
+        service = make_service(detector, recognizer, bank, **kw)
+        print(f"rank {rank}: 跟随 rank 0 的请求流", flush=True)
+        follow(service, relay)
+        _drained(service, bank)
+        return
     server = make_server(
         detector, recognizer, bank, host=args.host, port=args.port,
-        auth_token=args.auth_token, sharded=args.sharded, aot=args.aot,
-        mesh=dp if dp > 1 else None, fuse_search=args.fuse_search,
-        adaptive_embed=args.adaptive_embed, device=args.device,
+        auth_token=args.auth_token, relay=relay, **kw,
     )
     if args.aot:
         print(f"identify 热路径使用 AOT 程序包: {args.aot}")
@@ -535,6 +557,21 @@ def mode_serve(args):
         if args.gallery and len(bank):
             bank.save(args.gallery)
             print(f"gallery 已保存 → {args.gallery} ({len(bank)} 条)", flush=True)
+        if n_local > 1:
+            _drained(server.frt_service, bank)
+
+
+def _drained(service, bank):
+    """After the close, every rank's (requests served, gallery rows, last
+    name), gathered and printed by rank 0: the followers took what rank 0
+    took."""
+    import torch.distributed as dist
+
+    mine = (service.stats()["requests"], len(bank), bank.names[-1] if len(bank) else "")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        print(f"所有 rank 已排空 (请求, gallery 条数, 最后一条): {every}", flush=True)
 
 
 def mode_export(args):
@@ -590,7 +627,11 @@ def mode_train(args):
     --rec-model (by either package): the partial-FC ArcFace recipe
     (train/trainer.py + train/fit.py) with crash-safe resume from
     --train-ckpt. With --align every image is detected and aligned as
-    serving does (on the card: the NMS and x-major warp kernels).
+    serving does (on the card: the NMS and x-major warp kernels). On N
+    ranks the mesh is ("data", "model") (data_dim, 1) over the first
+    data_dim of them: the ranks split the cropping
+    (`IdentityFolderDataset.load_crops`), each steps on its block of the
+    global batch, and rank 0 alone prints and writes --out.
 
     `--detector` switches to DETECTOR fine-tuning: root + `--det-gt
     gt.json` (the same box-JSON format `eval --det-gt` scores against)
@@ -601,6 +642,7 @@ def mode_train(args):
     import torch.distributed as dist
 
     from facerecognizeonnx_tpu_torch import bridge
+    from facerecognizeonnx_tpu_torch.parallel.mesh import in_mesh, make_mesh
     from facerecognizeonnx_tpu_torch.train.data import IdentityFolderDataset
     from facerecognizeonnx_tpu_torch.train.fit import fit, warmup_cosine
     from facerecognizeonnx_tpu_torch.train.trainer import init_train_state, make_train_step
@@ -608,15 +650,17 @@ def mode_train(args):
 
     cfg = _cfg(args)
     root = args.images[0]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = print if rank == 0 else (lambda *a, **kw: None)  # only rank 0 prints
     detector = None
     if args.align:
         detector = FaceDetector(cfg, device=args.device)
         if not detector.load_model(args.det_model):
-            print(f"无法加载人脸检测模型: {args.det_model}")
+            say(f"无法加载人脸检测模型: {args.det_model}")
             sys.exit(-1)
     ds = IdentityFolderDataset(root, detector=detector, cfg=cfg, min_images_per_id=2)
     if ds.num_classes < 2:
-        print(f"训练数据不足: {root} 下仅 {ds.num_classes} 个身份 (需要 ≥2)")
+        say(f"训练数据不足: {root} 下仅 {ds.num_classes} 个身份 (需要 ≥2)")
         return -1
     if args.lr is None:
         args.lr = 0.02  # recognizer default (warmup-cosine peak)
@@ -624,18 +668,18 @@ def mode_train(args):
         args.batch = 32
     batch = min(args.batch, len(ds))
     # data-parallel mesh over the largest rank count dividing the batch
-    # (one rank per device; a single process trains without a mesh)
-    n_dev = dist.get_world_size() if dist.is_initialized() else 1
-    data_dim = max(d for d in range(1, n_dev + 1) if batch % d == 0)
-    mesh = None
-    if n_dev > 1:
-        from facerecognizeonnx_tpu_torch.parallel.mesh import in_mesh, make_mesh
-
-        mesh = make_mesh((cfg.data_axis, cfg.model_axis), (data_dim, 1),
-                         ranks=range(data_dim), device=args.device)
-        if not in_mesh(mesh):
-            return 0
-    print(
+    # (one rank per card: the launcher started that many; one rank is a
+    # mesh of one, as the JAX CLI's mesh of one device)
+    data_dim = max(d for d in range(1, world + 1) if batch % d == 0)
+    mesh = make_mesh((cfg.data_axis, cfg.model_axis), (data_dim, 1), ranks=range(data_dim),
+                     device=args.device)
+    if not in_mesh(mesh):
+        return 0
+    t0 = time.perf_counter()
+    n_crops = ds.load_crops(mesh=mesh, axis=cfg.data_axis)
+    say(f"数据: {n_crops}/{len(ds)} 张裁剪, {data_dim} 个 rank 分担, "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(
         f"训练: {ds.num_classes} 个身份 / {len(ds)} 张图像, "
         f"batch {batch}, mesh data={data_dim}, arch {cfg.rec_arch}"
     )
@@ -648,11 +692,11 @@ def mode_train(args):
         state, step_fn,
         ds.batches(batch, seed=cfg.seed, augment=not args.no_augment),
         args.steps,
-        ckpt_path=ckpt, ckpt_every=args.ckpt_every, log_every=10, mesh=mesh,
+        ckpt_path=ckpt, ckpt_every=args.ckpt_every, log_every=10, log=say, mesh=mesh,
     )
-    if mesh is None or dist.get_rank() == 0:
+    if rank == 0:
         save_params(args.out, bridge.tree_from_module(state.model))
-    print(
+    say(
         f"训练完成: {int(state.step)} 步 → {args.out} "
         f"(身份数 {ds.num_classes}; 用 --rec-model {args.out} 加载)"
     )
@@ -1191,6 +1235,7 @@ def main(argv=None):
                         help="eval --det-gt: IoU threshold for a true positive")
     args = parser.parse_args(argv)
     args.device = "cpu" if args.cpu else "cuda"
+    args.argv = list(argv if argv is not None else sys.argv[1:])
 
     if args.json:
         # human output (the banner of a pack, builds, diagnostics) goes to
@@ -1249,7 +1294,51 @@ def _run(args):
     except RuntimeError as e:
         print(f"{e} (CLI: --cpu)")
         return -1
-    return dispatch[args.mode](args)
+    if args.mode not in ("serve", "train") or args.detector:
+        return dispatch[args.mode](args)
+    procs = _start_ranks(args)
+    try:
+        ret = dispatch[args.mode](args)
+    except BaseException:
+        if procs is not None:
+            procs.kill()
+        raise
+    if procs is not None and procs.wait(EXIT_TIMEOUT_S):
+        return 1
+    return ret
+
+
+def _start_ranks(args):
+    """This process's rank of `serve` / `train`: one rank per card of the
+    host (module docstring); args.device becomes the rank's card."""
+    import torch
+    import torch.distributed as dist
+
+    from facerecognizeonnx_tpu_torch.parallel.distributed import ranks_for, start_ranks
+
+    n_cards = torch.cuda.device_count() if args.device == "cuda" else 1
+    batch = 1
+    if args.mode == "train":
+        from facerecognizeonnx_tpu_torch.train.data import IdentityFolderDataset
+
+        n_images = len(IdentityFolderDataset(args.images[0], min_images_per_id=2))
+        batch = max(1, min(args.batch or 32, n_images))
+    n_ranks = ranks_for(args.mode, n_cards, batch=batch, dp=args.dp, sharded=args.sharded)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    # the other ranks re-run this process's own command line when main()
+    # got it (a wrapper that started the CLI wraps them too), else the CLI
+    # with main()'s arguments
+    cmd = ([sys.executable, *sys.orig_argv[1:]] if args.argv == sys.argv[1:]
+           else [sys.executable, "-m", "facerecognizeonnx_tpu_torch", *args.argv])
+    procs = start_ranks(n_ranks, cmd, device=args.device, env=env)
+    if args.device == "cuda":
+        args.device = f"cuda:{torch.cuda.current_device()}"
+    world = dist.get_world_size()
+    print(f"进程组: {dist.get_backend()} × {world} rank{'s' if world > 1 else ''} "
+          f"(rank {dist.get_rank()}: {args.device})", flush=True)
+    return procs
 
 
 if __name__ == "__main__":

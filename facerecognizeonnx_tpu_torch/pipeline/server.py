@@ -289,6 +289,34 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
 
+def make_service(
+    detector,
+    recognizer,
+    bank: GalleryBank,
+    max_batch: int = 8,
+    batch_window_ms: float = 5.0,
+    warmup: bool = True,
+    sharded: bool = False,
+    aot=None,
+    mesh=None,
+    fuse_search: bool = False,
+    adaptive_embed: bool = False,
+    device="cuda",
+) -> IdentifyService:
+    """The IdentifyService that `make_server` serves (its arguments), with
+    the warm-up identify; a follower rank of `serve` builds the same one
+    without a server."""
+    service = IdentifyService(
+        detector.params, recognizer.params, bank, cfg=detector.cfg,
+        max_batch=max_batch, batch_window_ms=batch_window_ms,
+        sharded=sharded, aot=aot, mesh=mesh, fuse_search=fuse_search,
+        adaptive_embed=adaptive_embed, device=device,
+    )
+    if warmup:
+        service.identify(np.zeros((64, 64, 3), np.uint8), top_k=1, timeout=1800.0)
+    return service
+
+
 def make_server(
     detector,
     recognizer,
@@ -306,13 +334,14 @@ def make_server(
     fuse_search: bool = False,
     adaptive_embed: bool = False,
     device="cuda",
+    relay=None,
 ) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server; the caller runs serve_forever().
 
     detector / recognizer: a loaded FaceDetector / FaceRecognizer on
     `device`; their models feed one shared IdentifyService on `device`,
-    and enrolls go through detect → align → embed and mutate `bank` in
-    place (GalleryBank serializes its mutators, and each micro-batch
+    and enrolls go through detect → align → embed and update `bank`
+    through the service (`IdentifyService.update_bank`: each micro-batch
     answers against one snapshot of it). auth_token, when set, gates
     every endpoint behind `Authorization: Bearer <token>`. warmup runs
     one synthetic identify before returning, so a first use (kernel
@@ -324,16 +353,20 @@ def make_server(
     while enrolls still go through detector / recognizer. sharded spreads
     the gallery rows of the search over the ranks' "model" mesh; mesh (a
     mesh, or an int n for the first min(n, world) ranks) serves each
-    micro-batch data-parallel (see IdentifyService).
+    micro-batch data-parallel (see IdentifyService). relay: rank 0's
+    `pipeline.relay.Leader` when the service runs on several ranks; every
+    identify, bank update and the close then also reach the followers
+    (`pipeline.relay.RelayedService`).
     """
-    service = IdentifyService(
-        detector.params, recognizer.params, bank, cfg=detector.cfg,
-        max_batch=max_batch, batch_window_ms=batch_window_ms,
-        sharded=sharded, aot=aot, mesh=mesh, fuse_search=fuse_search,
+    service = make_service(
+        detector, recognizer, bank, max_batch=max_batch, batch_window_ms=batch_window_ms,
+        warmup=warmup, sharded=sharded, aot=aot, mesh=mesh, fuse_search=fuse_search,
         adaptive_embed=adaptive_embed, device=device,
     )
-    if warmup:
-        service.identify(np.zeros((64, 64, 3), np.uint8), top_k=1, timeout=1800.0)
+    if relay is not None:
+        from facerecognizeonnx_tpu_torch.pipeline.relay import RelayedService
+
+        service = RelayedService(service, relay)
 
     def enroll(name: str, image: np.ndarray) -> bool:
         faces = detector.detect(image)
@@ -342,12 +375,15 @@ def make_server(
         feat = recognizer.extract_feature(image, faces[0])
         if not feat.size:
             return False
-        bank.add(name, feat)
+        service.update_bank("add", name, feat).result(request_timeout)
         return True
+
+    def remove(name: str) -> int:
+        return service.update_bank("remove", name).result(request_timeout)
 
     handler = type("Handler", (_Handler,), {
         "service": service, "bank": bank, "enroll_fn": staticmethod(enroll),
-        "remove_fn": staticmethod(bank.remove), "auth_token": auth_token,
+        "remove_fn": staticmethod(remove), "auth_token": auth_token,
         "request_timeout": request_timeout,
     })
     server = ThreadingHTTPServer((host, port), handler)

@@ -45,7 +45,10 @@ agree on each micro-batch: one all-reduce over the ranks settles how
 many of the held requests it takes (the fewest any rank holds) and when
 every rank has closed, and each batch is resolved right after its
 dispatch. So every rank issues the same collectives in the same order,
-whatever the timing of its callers.
+whatever the timing of its callers. Bank updates through `update_bank`
+join the same queue there: a micro-batch never spans one, and each rank
+applies it after the same batches, so every rank answers each batch
+against the same bank.
 """
 
 from __future__ import annotations
@@ -85,6 +88,19 @@ class _Request:
     top_k: int
     future: Future = field(default_factory=Future)
     t_enqueue: float = 0.0
+
+
+@dataclass
+class _BankUpdate:
+    method: str  # "add" or "remove", a GalleryBank mutator
+    args: tuple
+    future: Future = field(default_factory=Future)
+
+    def apply(self, bank: GalleryBank) -> None:
+        try:
+            self.future.set_result(getattr(bank, self.method)(*self.args))
+        except Exception as e:  # the caller's future carries the error
+            self.future.set_exception(e)
 
 
 class IdentifyService:
@@ -191,9 +207,9 @@ class IdentifyService:
         self._requests_served = 0
         # rolling enqueue→result wall latency window (ms), for stats()
         self._lat: "deque[float]" = deque(maxlen=1024)
-        collective = self.mesh is not None or sharded
+        self._collective = self.mesh is not None or sharded
         self._worker = threading.Thread(
-            target=self._run_agreed if collective else self._run, daemon=True
+            target=self._run_agreed if self._collective else self._run, daemon=True
         )
         self._worker.start()
 
@@ -208,6 +224,20 @@ class IdentifyService:
         self, image_bgr: np.ndarray, top_k: int = 1, timeout: float = 120.0
     ) -> IdentifyResult:
         return self.identify_async(image_bgr, top_k).result(timeout)
+
+    def update_bank(self, method: str, *args) -> Future:
+        """`bank.add(name, feature)` or `bank.remove(name)`, resolved in the
+        returned future. A mesh or sharded service applies it on its
+        worker between micro-batches, in the order of the queue (module
+        docstring); any other applies it now."""
+        if method not in ("add", "remove"):
+            raise ValueError(f"update_bank: {method!r} is not a bank update (add, remove)")
+        update = _BankUpdate(method, args)
+        if self._collective:
+            self._q.put(update)
+        else:
+            update.apply(self.bank)
+        return update.future
 
     def stats(self):
         out = {
@@ -296,10 +326,17 @@ class IdentifyService:
         after its dispatch."""
         if self.device.type == "cuda":  # the rank's device, on this thread too
             torch.cuda.set_device(self.device)
+        # requests, and at most one bank update behind them: a batch takes
+        # only requests that came before it, and the update is applied
+        # once they are all dispatched, with nothing held
         held: "deque[_Request]" = deque()
+        update: Optional[_BankUpdate] = None
         closed = False
         while True:
-            if not closed:
+            if update is not None and not held:
+                update.apply(self.bank)
+                update = None
+            if not closed and update is None:
                 deadline = time.perf_counter() + self.window_s if held else None
                 while len(held) < self.max_batch:
                     timeout = 0.25 if deadline is None else deadline - time.perf_counter()
@@ -312,6 +349,12 @@ class IdentifyService:
                     if nxt is None:
                         closed = True
                         break
+                    if isinstance(nxt, _BankUpdate):
+                        if held:
+                            update = nxt
+                            break
+                        nxt.apply(self.bank)
+                        continue
                     held.append(nxt)
                     if deadline is None:
                         deadline = time.perf_counter() + self.window_s

@@ -8,15 +8,27 @@ kernel and the x-major warp kernel), cached as uint8 crops, and served
 as shuffled (images, labels) batches normalized to [-1, 1] RGB. The
 listing, labels, batches and augmentation are the JAX package's, numpy
 call for numpy call.
+
+On a mesh every rank draws the same global batches, so every rank needs
+the same crop cache. `load_crops(mesh)` fills it before training: the
+ranks of the "data" axis split the images, each crops its share on its
+own card, and the crops are all-gathered in rounds of at most
+`CROP_ROUND_S` seconds of cropping each, so no rank waits in a
+collective much longer than that while another crops (the groups time
+out after 60 s). Splitting, rather than every rank cropping the whole
+folder, divides the cropping time by the number of ranks.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+CROP_ROUND_S = 10.0  # cropping time per all-gather round of load_crops
 
 
 class IdentityFolderDataset:
@@ -98,6 +110,58 @@ class IdentityFolderDataset:
                 crop = cv2.resize(image, (size, size))
         self._crop_cache[path] = crop
         return crop
+
+    def load_crops(self, mesh=None, axis: str = "data") -> int:
+        """Fill the crop cache with every image's crop; returns how many
+        images gave one. With `mesh`, rank i of the `axis` line crops
+        images i, i + n, ... and every rank of the line ends with every
+        crop (module docstring): a collective over that line, so each of
+        its ranks calls it."""
+        from facerecognizeonnx_tpu_torch.parallel.mesh import axis_size
+
+        paths = [p for p, _ in self.samples]
+        n = 1 if mesh is None else axis_size(mesh, axis)
+        if n == 1:
+            return sum(self._load_crop(p) is not None for p in paths)
+        import torch
+
+        from facerecognizeonnx_tpu_torch.parallel.mesh import all_gather_into_tensor, mesh_device
+
+        group, dev = mesh.get_group(axis), mesh_device(mesh)
+        cfg = self._cfg or (self._detector.cfg if self._detector is not None else None)
+        size = cfg.rec_input_size if cfg is not None else 112
+        mine = list(range(mesh.get_local_rank(axis), len(paths), n))
+        pos = 0
+        while True:
+            # crop for up to CROP_ROUND_S (at least one image while any is left)
+            ids, crops = [], []
+            t_end = time.perf_counter() + CROP_ROUND_S
+            while pos < len(mine) and (not ids or time.perf_counter() < t_end):
+                crop = self._load_crop(paths[mine[pos]])
+                if crop is not None:
+                    ids.append(mine[pos])
+                    crops.append(crop)
+                pos += 1
+            state = torch.empty((n, 2), dtype=torch.int64, device=dev)  # (crops, finished)
+            all_gather_into_tensor(state, torch.tensor([[len(ids), int(pos == len(mine))]],
+                                                       device=dev), group)
+            m, done = int(state[:, 0].max()), bool(state[:, 1].all())
+            if m:
+                block = np.zeros((m, size, size, 3), np.uint8)
+                block[:len(crops)] = crops
+                idx = np.full(m, -1, np.int64)
+                idx[:len(ids)] = ids
+                got = torch.empty((n * m, size, size, 3), dtype=torch.uint8, device=dev)
+                all_gather_into_tensor(got, torch.from_numpy(block).to(dev), group)
+                got_idx = torch.empty(n * m, dtype=torch.int64, device=dev)
+                all_gather_into_tensor(got_idx, torch.from_numpy(idx).to(dev), group)
+                got = got.cpu().numpy()
+                for row, i in enumerate(got_idx.cpu().tolist()):
+                    if i >= 0:
+                        self._crop_cache[paths[i]] = got[row]
+            if done:
+                break
+        return sum(p in self._crop_cache for p in paths)
 
     def crop(self, path: str) -> Optional[np.ndarray]:
         """The cached aligned (S, S, 3) uint8 BGR crop for one dataset

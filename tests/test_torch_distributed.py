@@ -6,15 +6,28 @@ COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID variables, then run a
 cross-rank all-gather, the row-sharded gallery search and the
 data-parallel embed (tests/test_distributed.py of the JAX package; its
 4-process form is the 4-rank spawn of tests/test_torch_parallel.py).
+
+The CLI's launcher: its rank count per mode on a faked card count (the
+launch itself replaced by a recorder, so nothing is spawned), and
+`RankProcesses` showing a failed rank's exit code and output.
 """
+
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import torch.distributed as dist
 
 from facerecognizeonnx_tpu_torch import bridge
+from facerecognizeonnx_tpu_torch.cli import main as cli
 from facerecognizeonnx_tpu_torch.parallel import distributed
 from tests.torch_ranks import run_ranks
+
+REPO = str(Path(__file__).resolve().parent.parent)
 
 
 @pytest.fixture(scope="module")
@@ -112,3 +125,91 @@ def test_backends():
     else:  # a CUDA mesh without NCCL raises: no Gloo or CPU fallback
         with pytest.raises(RuntimeError, match="NCCL"):
             distributed.backend_for("cuda")
+
+
+class _Launched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,cards,want", [
+    (["serve"], 4, 1),
+    (["serve", "--dp", "2"], 4, 2),
+    (["serve", "--dp", "8"], 4, 4),
+    (["serve", "--dp", "-1"], 4, 4),
+    (["serve", "--sharded"], 4, 4),
+    (["serve", "--dp", "-1"], 1, 1),
+    (["serve", "--dp", "-1", "--cpu"], 4, 1),
+    (["train", "IDS"], 4, 3),  # 6 images: batch min(32, 6) = 6 → 3 ranks
+    (["train", "IDS", "--batch", "4"], 4, 4),
+    (["train", "IDS", "--batch", "4"], 3, 2),
+    (["train", "IDS", "--batch", "4", "--cpu"], 4, 1),
+])
+def test_cli_rank_count(monkeypatch, tmp_path, argv, cards, want):
+    """One rank per card: `train` the most cards dividing its batch,
+    `serve` min(--dp, cards), every card for --dp -1 and --sharded, one
+    rank with --cpu; the ranks re-run the same command."""
+    for who in ("a", "b", "c"):
+        (tmp_path / who).mkdir()
+        for i in range(2):
+            (tmp_path / who / f"{i}.png").write_bytes(b"")  # listed, never read
+    argv = [str(tmp_path) if a == "IDS" else a for a in argv]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    seen = []
+
+    def record(n_ranks, cmd, device="cuda", env=None):
+        seen.append((n_ranks, cmd, device))
+        raise _Launched
+
+    monkeypatch.setattr(distributed, "start_ranks", record)
+    with pytest.raises(_Launched):
+        cli.main(argv)
+    n_ranks, cmd, device = seen[0]
+    assert n_ranks == want and device == ("cpu" if "--cpu" in argv else "cuda")
+    assert cmd == [sys.executable, "-m", "facerecognizeonnx_tpu_torch", *argv]
+
+
+def test_other_modes_take_one_rank():
+    for mode in ("detect", "enroll", "identify", "export", "eval", "webcam"):
+        assert distributed.ranks_for(mode, 8, batch=8, dp=-1, sharded=True) == 1
+
+
+def test_a_failed_rank_is_reported(capfd):
+    """A rank that exits non-zero fails the wait with its exit code and
+    the tail of its output; the watch thread names it."""
+    code = "import os, sys; print('rank says', os.environ['PROCESS_ID']); " \
+           "sys.exit(3 if os.environ['PROCESS_ID'] == '2' else 0)"
+    procs = distributed.RankProcesses([sys.executable, "-c", code], [1, 2], 3,
+                                      "127.0.0.1:1")
+    failed = []
+    procs.watch(lambda r, rc: failed.append((r, rc)))
+    assert procs.wait(60) == 1
+    err = capfd.readouterr().err
+    assert "rank 2 exit 3; its output ends:\nrank says 2" in err and "rank 1" not in err
+    for _ in range(100):
+        if failed:
+            break
+        time.sleep(0.05)
+    assert failed == [(2, 3)]
+
+
+def test_a_rank_that_fails_ends_the_command():
+    """`start_ranks` on the card path: rank 1 exits 3 while rank 0 waits
+    for it (its rendezvous faked by a sleep), and rank 0 exits 1 within
+    seconds, showing rank 1's output; it does not carry on alone."""
+    code = (
+        "import sys, time\n"
+        "from facerecognizeonnx_tpu_torch.parallel import distributed\n"
+        "distributed.init_distributed = lambda *a, **kw: time.sleep(60)\n"
+        "distributed.start_ranks(2, [sys.executable, '-c', "
+        "'import sys; print(\"rank one starting\"); sys.exit(3)'], device='cuda')\n"
+        "print('carried on')\n"
+    )
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=60, cwd=REPO)
+    assert proc.returncode == 1 and time.monotonic() - t0 < 30
+    assert "rank 1 exit 3; its output ends:\nrank one starting" in proc.stderr
+    assert "carried on" not in proc.stdout

@@ -28,7 +28,7 @@ from facerecognizeonnx_tpu.pipeline.enroll import enroll_batch as j_enroll_batch
 from facerecognizeonnx_tpu_torch import bridge
 from facerecognizeonnx_tpu_torch.parallel.expert_parallel import route_by_yaw, stack_experts
 from facerecognizeonnx_tpu_torch.utils.checkpoint import save_params
-from tests.torch_ranks import run_ranks
+from tests.torch_ranks import spawn_ranks
 
 JCFG = JaxConfig(compute_dtype="float32", rec_input_size=32)
 IDS = {
@@ -59,13 +59,17 @@ def inputs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs, tmp_path_factory):
-    outs = run_ranks(tmp_path_factory.mktemp("ep"), 4, ["ep", "enroll_experts"], inputs)
-    return outs
+def spawned(inputs, tmp_path_factory):
+    return spawn_ranks(tmp_path_factory.mktemp("ep"), 4, ["ep", "enroll_experts"], inputs)
 
 
 @pytest.fixture(scope="module")
-def jax_alone(inputs):
+def ranks(spawned, jax_alone):  # the JAX references are computed while the ranks run
+    return spawned.result()
+
+
+@pytest.fixture(scope="module")
+def jax_alone(inputs, spawned):
     """(4, 8, 512): JAX's embed_crops of every crop by every expert."""
     fn = jax.jit(lambda p, c: j_embed_crops(p, c, JCFG))
     with jax.default_matmul_precision("highest"):

@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.pipeline.client",
     "facerecognizeonnx_tpu_torch.pipeline.server",
     "facerecognizeonnx_tpu_torch.pipeline.aot",
+    "facerecognizeonnx_tpu_torch.pipeline.relay",
     "facerecognizeonnx_tpu_torch.utils.debug",
     "facerecognizeonnx_tpu_torch.utils.draw",
     "facerecognizeonnx_tpu_torch.utils.realmodels",
@@ -85,12 +86,10 @@ SLICE_MODULES = [
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_port_imports_no_jax():
-    """Nor cv2 or PIL, which `io.imageio` imports only when a call needs
-    them: the GPU host has neither."""
+def _imports_clean(modules):
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE_MODULES!r}:\n"
+        f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.split('.')[0] in ('facerecognizeonnx_tpu', 'cv2', 'PIL'))\n"
@@ -103,6 +102,19 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_port_imports_no_jax():
+    """Nor cv2 or PIL, which `io.imageio` imports only when a call needs
+    them: the GPU host has neither."""
+    _imports_clean(SLICE_MODULES)
+
+
+def test_launcher_and_relay_import_alone():
+    """The CLI's launcher and rank 0's relay, imported first in a process
+    of their own (as a rank that `start_ranks` starts imports them)."""
+    _imports_clean(["facerecognizeonnx_tpu_torch.parallel.distributed",
+                    "facerecognizeonnx_tpu_torch.pipeline.relay"])
 
 
 def test_chip_smoke_without_a_card_fails_and_imports_no_jax():

@@ -4,7 +4,9 @@ on 1, 2 and 4 real Gloo ranks (`tests/torch_ranks.py`) vs the JAX
 package's functions on its 8-virtual-device mesh, and vs the port's own
 unsharded calls in the same ranks.
 
-One spawn per world size runs every check of this file. Weights: seeded
+One spawn per world size runs every check of this file; the three
+spawns start together, and the JAX references are computed while they
+run. Weights: seeded
 numpy trees of `bridge.init_params_numpy` (SCRFD-500m biased by the
 detections recipe of `chip_smoke.detection_bias`, IResNet-18), float32
 at 128². Bars: against the port's unsharded call, bit for bit on one
@@ -39,7 +41,7 @@ from facerecognizeonnx_tpu.parallel.sharded_ops import (
     sharded_topk_search as j_sharded_topk_search,
 )
 from facerecognizeonnx_tpu_torch import bridge
-from tests.torch_ranks import run_ranks
+from tests.torch_ranks import spawn_ranks
 
 SIZE = 128
 CHECKS = ["mesh", "search", "bank", "embed", "dp", "dp_w8a8", "dp_matches"]
@@ -74,15 +76,20 @@ def inputs():
     }
 
 
+@pytest.fixture(scope="module")
+def spawned(inputs, tmp_path_factory):
+    return {w: spawn_ranks(tmp_path_factory.mktemp(f"w{w}"), w, CHECKS, inputs)
+            for w in WORLDS}
+
+
 @pytest.fixture(scope="module", params=WORLDS, ids=[f"world{w}" for w in WORLDS])
-def ranks(request, inputs, tmp_path_factory):
+def ranks(request, spawned, jax_ref):
     world = request.param
-    outs = run_ranks(tmp_path_factory.mktemp(f"w{world}"), world, CHECKS, inputs)
-    return world, outs
+    return world, spawned[world].result()
 
 
 @pytest.fixture(scope="module")
-def jax_ref(inputs):
+def jax_ref(inputs, spawned):
     """The JAX functions on the JAX test session's 8 virtual devices."""
     out = {}
     for name, k in (("g1000", 5), ("g1003", 7), ("g3", 10)):

@@ -32,7 +32,7 @@ from facerecognizeonnx_tpu.pipeline.fused import frames_to_features as j_frames_
 from facerecognizeonnx_tpu_torch import bridge
 from facerecognizeonnx_tpu_torch.config import PipelineConfig
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_features
-from tests.torch_ranks import run_ranks
+from tests.torch_ranks import spawn_ranks
 
 JCFG = JaxConfig(det_input_size=128, compute_dtype="float32", pre_nms_topk=64, max_faces=16)
 CASES = {"stage": 4, "dp_pp": 4, "micro4_b3": 3, "pp_tp": 4}  # case → frames
@@ -51,13 +51,17 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs, tmp_path_factory):
-    outs = run_ranks(tmp_path_factory.mktemp("pp"), 4, ["pp"], inputs)
-    return [o["pp"] for o in outs]
+def spawned(inputs, tmp_path_factory):
+    return spawn_ranks(tmp_path_factory.mktemp("pp"), 4, ["pp"], inputs)
 
 
 @pytest.fixture(scope="module")
-def jax_ref(inputs):
+def ranks(spawned, jax_ref):  # the JAX references are computed while the ranks run
+    return [o["pp"] for o in spawned.result()]
+
+
+@pytest.fixture(scope="module")
+def jax_ref(inputs, spawned):
     with jax.default_matmul_precision("highest"):
         fused = jax.jit(lambda d, a, f: j_frames_to_features(d, a, f, JCFG, max_faces_embed=4))(
             inputs["det"], inputs["rec"], inputs["frames4"])

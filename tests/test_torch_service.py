@@ -45,7 +45,27 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def two_ranks(tmp_path_factory):
+    """The two Gloo ranks of the last tests, started first: they run while
+    this module's JAX side builds."""
+    from chip_smoke import detection_bias
+    from facerecognizeonnx_tpu_torch import bridge
+    from tests.torch_ranks import spawn_ranks
+
+    rng = np.random.default_rng(17)
+    images = rng.integers(0, 256, (6, 128, 128, 3), dtype=np.uint8)
+    bank = rng.normal(size=(20, 512)).astype(np.float32)
+    inputs = {
+        "det": detection_bias(bridge.init_params_numpy("500m", seed=0), torch.from_numpy(images)),
+        "rec": bridge.init_params_numpy("iresnet18", seed=1),
+        "bank": bank / np.linalg.norm(bank, axis=1, keepdims=True),
+        "images": images,
+    }
+    return spawn_ranks(tmp_path_factory.mktemp("service_ranks"), 2, ["service"], inputs)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, two_ranks):
     jax_native_built()  # the JAX service letterboxes with it
     rng = np.random.default_rng(31)
     frames = rng.integers(0, 256, (3, 128, 128, 3), dtype=np.uint8)
@@ -287,7 +307,7 @@ def test_adaptive_service_matches_dense(world, enrolled, fuse):
         _same_result(g, w, 1e-5)
 
 
-def test_two_rank_service_issues_collectives_in_one_order(tmp_path):
+def test_two_rank_service_issues_collectives_in_one_order(two_ranks):
     """Two Gloo ranks each run IdentifyService(sharded=True, mesh=2) on the
     same requests in the same order, their callers paced differently: the
     workers agree on every micro-batch, so the dp program's and the
@@ -295,20 +315,7 @@ def test_two_rank_service_issues_collectives_in_one_order(tmp_path):
     plain service does: names equal, sims within 1e-5 (float32 with the
     gather warp; a rank's batch of 1 frame may take other conv algorithms
     than the plain service's batch of 2, which moves features by ~1e-6)."""
-    from chip_smoke import detection_bias
-    from facerecognizeonnx_tpu_torch import bridge
-    from tests.torch_ranks import run_ranks
-
-    rng = np.random.default_rng(17)
-    images = rng.integers(0, 256, (6, 128, 128, 3), dtype=np.uint8)
-    bank = rng.normal(size=(20, 512)).astype(np.float32)
-    inputs = {
-        "det": detection_bias(bridge.init_params_numpy("500m", seed=0), torch.from_numpy(images)),
-        "rec": bridge.init_params_numpy("iresnet18", seed=1),
-        "bank": bank / np.linalg.norm(bank, axis=1, keepdims=True),
-        "images": images,
-    }
-    outs = [o["service"] for o in run_ranks(tmp_path, 2, ["service"], inputs)]
+    outs = [o["service"] for o in two_ranks.result()]
     for o in outs:
         ours, plain = o["ours"], o["plain"]
         assert ours["valid"].any()
@@ -316,3 +323,19 @@ def test_two_rank_service_issues_collectives_in_one_order(tmp_path):
         np.testing.assert_array_equal(ours["names"], plain["names"])
         np.testing.assert_allclose(ours["sims"], plain["sims"], rtol=0, atol=1e-5)
     assert outs[0]["ours"]["batches"] == outs[1]["ours"]["batches"]
+
+
+def test_two_rank_service_orders_bank_updates(two_ranks):
+    """Bank updates (`update_bank`) submitted between the requests of the
+    same two ranks, without waiting: every request is answered against
+    the bank with exactly the updates submitted before it, as the plain
+    service answers the same calls one at a time (each answer lists the
+    whole bank, so a misplaced update changes its names)."""
+    for o in (o["service"] for o in two_ranks.result()):
+        ours, plain = o["ours_updates"], o["plain_updates"]
+        assert ours["valid"].any()
+        np.testing.assert_array_equal(ours["valid"], plain["valid"])
+        np.testing.assert_array_equal(ours["names"], plain["names"])
+        np.testing.assert_allclose(ours["sims"], plain["sims"], rtol=0, atol=1e-5)
+        rows = (plain["names"][:, 0] >= 0).sum(-1)  # the bank's rows at each answer
+        assert rows.tolist() == [20, 21, 21, 20, 20, 20]

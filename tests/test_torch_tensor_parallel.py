@@ -33,7 +33,7 @@ from facerecognizeonnx_tpu_torch.parallel.tensor_parallel import (
     recognizer_param_specs,
     validate_tp_width,
 )
-from tests.torch_ranks import run_ranks
+from tests.torch_ranks import spawn_ranks
 
 JCFG = JaxConfig(compute_dtype="float32")
 
@@ -56,13 +56,17 @@ def trees():
 
 
 @pytest.fixture(scope="module")
-def ranks(trees, tmp_path_factory):
-    outs = run_ranks(tmp_path_factory.mktemp("tp"), 4, ["tp"], trees)
-    return [o["tp"] for o in outs]
+def spawned(trees, tmp_path_factory):
+    return spawn_ranks(tmp_path_factory.mktemp("tp"), 4, ["tp"], trees)
 
 
 @pytest.fixture(scope="module")
-def jax_ref(trees):
+def ranks(spawned, jax_ref):  # the JAX references are computed while the ranks run
+    return [o["tp"] for o in spawned.result()]
+
+
+@pytest.fixture(scope="module")
+def jax_ref(trees, spawned):
     crops = trees["crops5"]
     fn = jax.jit(lambda p, c: j_embed_crops(p, c, JCFG))
     mesh2 = j_make_mesh(("model",), (2,), devices=jax.devices()[:2])

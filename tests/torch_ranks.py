@@ -2,7 +2,8 @@
 ranks over Gloo on the CPU.
 
 A test module calls `run_ranks(tmp_dir, world, checks, inputs)` once per
-world shape (from a module-scoped fixture). It writes `inputs` (a tree
+world shape (from a module-scoped fixture), or `spawn_ranks` to compute
+its JAX references while the ranks run. It writes `inputs` (a tree
 of numpy arrays: weights as the numpy trees `bridge` takes, data) to an
 `.npz`, starts `world` processes of this file, and returns each rank's
 outputs: a dict {check name: tree of numpy arrays}. Each rank runs every
@@ -23,7 +24,6 @@ for a hang outside the collectives, sized for a loaded CPU).
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -37,15 +37,48 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # ---------------------------------------------------------------- parent side
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+class Spawned:
+    """Ranks started by `spawn_ranks`; `result()` waits for them."""
+
+    def __init__(self, run_dir, world, procs, timeout):
+        self.run_dir, self.world, self.procs = run_dir, world, procs
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self._outs = None
+
+    def result(self):
+        """[outputs of rank r] once every rank has exited 0."""
+        from facerecognizeonnx_tpu_torch.utils.checkpoint import load_params
+
+        if self._outs is not None:
+            return self._outs
+        logs = []
+        try:
+            for p in self.procs:
+                logs.append(p.communicate(timeout=max(1.0, self.deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for p in self.procs:
+                p.kill()
+            tails = [(p.communicate()[0] or "")[-2000:] for p in self.procs]
+            raise AssertionError(f"ranks still running after {self.timeout} s:\n"
+                                 + "\n".join(tails))
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+        self._outs = [load_params(os.path.join(self.run_dir, f"out{r}.npz"))
+                      for r in range(self.world)]
+        return self._outs
 
 
-def run_ranks(run_dir, world: int, checks, inputs, tcp: bool = False, timeout: float = 180.0):
-    """Run `checks` on `world` Gloo ranks; returns [outputs of rank r]."""
-    from facerecognizeonnx_tpu_torch.utils.checkpoint import load_params, save_params
+def spawn_ranks(run_dir, world: int, checks, inputs, tcp: bool = False,
+                timeout: float = 180.0) -> Spawned:
+    """Start `checks` on `world` Gloo ranks and return at once (a module
+    computes its JAX references while they run)."""
+    from facerecognizeonnx_tpu_torch.parallel.distributed import free_port
+    from facerecognizeonnx_tpu_torch.utils.checkpoint import save_params
 
     run_dir = str(run_dir)
     os.makedirs(run_dir, exist_ok=True)
@@ -53,7 +86,7 @@ def run_ranks(run_dir, world: int, checks, inputs, tcp: bool = False, timeout: f
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     if tcp:
-        env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}", NUM_PROCESSES=str(world))
+        env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}", NUM_PROCESSES=str(world))
     procs = []
     for r in range(world):
         if tcp:
@@ -63,23 +96,12 @@ def run_ranks(run_dir, world: int, checks, inputs, tcp: bool = False, timeout: f
              ",".join(checks), "tcp" if tcp else "file"],
             env=dict(env), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
-    deadline = time.monotonic() + timeout
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        tails = [(p.communicate()[0] or "")[-2000:] for p in procs]
-        raise AssertionError(f"ranks still running after {timeout} s:\n" + "\n".join(tails))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-    return [load_params(os.path.join(run_dir, f"out{r}.npz")) for r in range(world)]
+    return Spawned(run_dir, world, procs, timeout)
+
+
+def run_ranks(run_dir, world: int, checks, inputs, tcp: bool = False, timeout: float = 180.0):
+    """Run `checks` on `world` Gloo ranks; returns [outputs of rank r]."""
+    return spawn_ranks(run_dir, world, checks, inputs, tcp, timeout).result()
 
 
 # ---------------------------------------------------------------- rank side
@@ -425,8 +447,9 @@ def check_enroll_experts(inp, rank, world):
 
 def check_service(inp, rank, world):
     """IdentifyService(sharded=True, mesh=world) on every rank, the same
-    requests in the same order, but each rank's caller paced differently
-    so the ranks' queues fill at other times; against the plain service."""
+    requests (and then requests with bank updates between them) in the
+    same order, but each rank's caller paced differently so the ranks'
+    queues fill at other times; against the plain service."""
     import time
 
     from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
@@ -454,6 +477,40 @@ def check_service(inp, rank, world):
             "names": np.int32([[[int(n[2:]) for n in row] + [-1] * (3 - len(row))
                                 for row in r.names] for r in res]),
             "batches": np.int32(svc.stats()["batches"]),
+        }
+    # bank updates between the requests: submitted without waiting (rank-
+    # dependent pacing) to the mesh service, one call at a time to the
+    # plain one. Every answer lists the whole bank (top_k > its rows), so
+    # each shows which updates came before it.
+    extra = np.random.default_rng(3).normal(size=(2, 512)).astype(np.float32)
+    steps = [("id", 0), ("add", "id90", 0), ("id", 1), ("id", 0), ("remove", "id3"),
+             ("id", 2), ("add", "id91", 1), ("remove", "id90"), ("id", 1), ("id", 2)]
+    top_k = 25
+    for tag, kw in (("ours_updates", dict(sharded=True, mesh=world)), ("plain_updates", {})):
+        ubank = GalleryBank(device="cpu")
+        ubank.add_batch([f"id{i}" for i in range(len(inp["bank"]))], inp["bank"])
+        svc = IdentifyService(det, rec, ubank, cfg, max_batch=2, batch_window_ms=20.0,
+                              max_faces=4, device="cpu", **kw)
+        futures = []
+        for i, (op, *arg) in enumerate(steps):
+            if op == "id":
+                fut = svc.identify_async(images[arg[0]], top_k=top_k)
+                futures.append(fut)
+            elif op == "add":
+                fut = svc.update_bank("add", arg[0], extra[arg[1]])
+            else:
+                fut = svc.update_bank("remove", arg[0])
+            if tag == "ours_updates":
+                time.sleep(0.03 * ((i + rank) % 3))
+            else:
+                fut.result(timeout=60)
+        res = [f.result(timeout=60) for f in futures]
+        svc.close()
+        out[tag] = {
+            "valid": np.stack([r.valid for r in res]),
+            "sims": np.stack([r.sims for r in res]),
+            "names": np.int32([[[int(n[2:]) for n in row] + [-1] * (top_k - len(row))
+                                for row in r.names] for r in res]),
         }
     return out
 
@@ -556,7 +613,39 @@ def _rank_main(rank: int, world: int, run_dir: str, checks, mode: str) -> None:
     print(f"OK rank={rank} world={world}")
 
 
-if __name__ == "__main__":
+def cli_command(argv) -> list:
+    """The port's CLI run by this file (`_cli_main`): float32, one torch
+    thread."""
+    return [sys.executable, os.path.abspath(__file__), "cli", *argv]
+
+
+def cli_env(**launcher) -> dict:
+    """The environment of a `cli_command` process, with the launcher's
+    variables (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) given."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", PYTHONUNBUFFERED="1")
+    for key in ("XLA_FLAGS", "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        env.pop(key, None)
+    env.update({k: str(v) for k, v in launcher.items()})
+    return env
+
+
+def _cli_main(argv) -> int:
+    """The CLI with auto_config wrapped to float32 (as tests/test_torch_cli.py
+    wraps it in process)."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from facerecognizeonnx_tpu_torch.cli import main as cli
+
+    torch.set_num_threads(1)
+    auto = cli.auto_config
+    cli.auto_config = lambda **kw: auto(**{"compute_dtype": "float32", **kw})
+    return cli.main(argv)
+
+
+if __name__ == "__main__" and sys.argv[1] == "cli":
+    sys.exit(_cli_main(sys.argv[2:]))
+elif __name__ == "__main__":
     try:
         _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                    sys.argv[4].split(","), sys.argv[5])
