@@ -246,13 +246,23 @@ Phases (any failure exits non-zero; there is no CPU path):
      and `eval <root> --align --json` in subprocesses (`train` through
      the CLI's launcher: `进程组: nccl × 1 rank`, mesh data=1), then
      `enroll` and `identify --rec-model` of the trained `.npz` in process
- 18. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
+ 18. the bench mode (`phase_bench`): `python -m
+     facerecognizeonnx_tpu_torch.bench --config all --iters 5`, then its
+     configs headline_mbf_q8 and headline_occ_adaptive_q8 by name, then
+     `python -m facerecognizeonnx_tpu_torch.cli bench`, each a subprocess
+     at the default batch of 128 frames; each line of record printed;
+     fails on a config with an error or without a value, and where a
+     config of the fused step launched no warp_xm, warp_xm_pyramid or
+     nms_greedy kernel in its timed region, or `gallery` no gallery_topk
+ 19. one JSON line of the kernels (warp_xm, warp_xm_pyramid and
      nms_greedy also give their launches on each other path:
      `dp_launches` (one call of the dp step), `bucketed_launches` (one
      call of the bucketed mesh form), `w8a8_dp_launches` (one call of
-     the w8a8 dp step), `train_launches` (phase 17's crops) and
-     `train_mesh_launches` (the crops over the (1, 1) mesh)), the
-     nvidia-smi line, and last {"ok": true, "device": {...}}
+     the w8a8 dp step), `train_launches` (phase 17's crops),
+     `train_mesh_launches` (the crops over the (1, 1) mesh) and
+     `bench_launches` (per bench config, its timed region); gallery_topk
+     gives `bench_launches` of the gallery config), the nvidia-smi line,
+     and last {"ok": true, "device": {...}}
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; launches made to compare a kernel with its plain
@@ -3184,6 +3194,94 @@ def phase_train(dev, rng, frames, det_tree, smi, hw=TRAIN_HW, det_size=640, arch
             for form, counts in (("train", train_counts), ("train_mesh", mesh_counts))}
 
 
+BENCH_KERNELS = ("warp_xm", "warp_xm_pyramid", "nms_greedy")
+# the bench configs that run the fused step, so every kernel of BENCH_KERNELS
+HEADLINE_FAMILY = (
+    "headline", "headline_mbf", "headline_q8", "headline_onnx", "headline_occ",
+    "headline_occ_adaptive", "headline_occ_adaptive_mbf", "headline_mbf_q8",
+    "headline_occ_adaptive_q8", "cli bench",
+)
+BENCH_NAMED = ("headline_mbf_q8", "headline_occ_adaptive_q8")  # not in `all`
+
+
+def _bench_run(argv, timeout, module="facerecognizeonnx_tpu_torch.bench"):
+    """`python -m module argv` from the repo root → (stdout lines, s)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True, text=True,
+                         timeout=timeout, cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    secs = time.perf_counter() - t0
+    assert run.returncode == 0, (f"{module} {argv}: exit {run.returncode}\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    return run.stdout.strip().splitlines(), secs
+
+
+def _compact(doc) -> str:
+    return json.dumps({k: doc.get(k) for k in ("metric", "value", "unit", "vs_baseline")})
+
+
+def phase_bench(iters=5) -> dict:
+    """The bench mode (facerecognizeonnx_tpu_torch/bench.py) as a user runs
+    it, each run a subprocess at the default batch (128): `--config all`,
+    the two configs `all` leaves out by name, and the CLI's `bench`. Fails
+    on a config that carries an error or lacks a value, and where a config
+    of the fused step launched no warp_xm, warp_xm_pyramid or nms_greedy
+    kernel in its timed region, or `gallery` no gallery_topk. Returns
+    {kernel: {config: launches}} for the kernels line."""
+    from facerecognizeonnx_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="frt_bench_")
+    detail = os.path.join(tmp, "bench_detail.json")
+    lines, all_s = _bench_run(["--config", "all", "--iters", str(iters), "--detail", detail], 600)
+    assert len(lines) == 2, lines[-3:]  # the full document, then the line of record
+    full, compact = json.loads(lines[0]), json.loads(lines[1])
+    assert len(lines[1]) <= 1900, len(lines[1])
+    with open(detail) as f:
+        assert json.load(f) == full, "the detail file differs from the full line"
+    log(f"bench --config all --iters {iters}: {all_s:.1f} s; its line of record: {lines[1]}")
+    results = {"headline": full}  # the headline's result is the document's top level
+    results.update(full["detail"]["configs"])
+    assert set(results) == set(bench.ORDER), sorted(results)
+    for name in BENCH_NAMED:
+        out, secs = _bench_run(["--config", name, "--iters", str(iters)], 300)
+        assert len(out) == 1, out[-3:]
+        results[name] = json.loads(out[0])
+        log(f"bench --config {name}: {secs:.1f} s: {_compact(results[name])}")
+    out, cli_s = _bench_run(["bench"], 300, module="facerecognizeonnx_tpu_torch.cli")
+    results["cli bench"] = json.loads(out[-1])
+    log(f"`python -m facerecognizeonnx_tpu_torch.cli bench`: {cli_s:.1f} s: "
+        f"{_compact(results['cli bench'])}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    errors = {name: r.get("error", r.get("detail", {}).get("error"))
+              for name, r in results.items()
+              if "error" in r or "error" in r.get("detail", {}) or "value" not in r}
+    assert not errors, f"bench configs failed: {errors}"
+    for name, r in results.items():
+        assert np.isfinite(r["value"]) and r["value"] > 0, (name, r["value"])
+        assert r["vs_baseline"] is None, (name, r["vs_baseline"])
+    launches = {k: {} for k in BENCH_KERNELS + ("gallery_topk",)}
+    for name in HEADLINE_FAMILY:
+        counts = results[name]["detail"]["launches"]
+        for k in BENCH_KERNELS:
+            assert counts[k] > 0, f"bench config {name} launched no {k} kernel: {counts}"
+            launches[k][name] = counts[k]
+    for name in ("serve", "latency", "video"):
+        counts = results[name]["detail"]["launches"]
+        for k in BENCH_KERNELS:
+            launches[k][name] = counts[k]
+    n = results["gallery"]["detail"]["launches"]["gallery_topk"]
+    assert n > 0, "bench config gallery launched no gallery_topk kernel"
+    launches["gallery_topk"]["gallery"] = n
+    card = results["headline"]["detail"]["device"]
+    log(f"bench phase: {time.perf_counter() - t_phase:.1f} s in all; every config has a value "
+        f"and no error; launches {json.dumps(launches)} | device {card}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -3392,34 +3490,40 @@ def main() -> int:
     def on_paths(name):
         return {f"{path}_launches": counts[name] for path, counts in paths.items()}
 
-    # ---- 18. result lines
+    # ---- 18. the bench mode, as a user runs it
     phase(18)
+    torch.cuda.empty_cache()  # the bench's processes need the card's memory
+    bench_launches = phase_bench()
+
+    # ---- 19. result lines
+    phase(19)
     kernels = [
         dict(name="warp_xm", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:273 (_kernel_xm, with the "
                       "face table of _warp_affine_pallas_xm, :422-492)",
              launches=main_launches, **on_paths("warp_xm"),
-             **xm),
+             bench_launches=bench_launches["warp_xm"], **xm),
         dict(name="warp_xm_pyramid", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_xm.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:249 (build_pyramid_xm, the "
                       "prologue of _warp_affine_pallas_xm)",
              launches=main_counts["warp_xm_pyramid"],
              **on_paths("warp_xm_pyramid"),
-             **pyramid),
+             bench_launches=bench_launches["warp_xm_pyramid"], **pyramid),
         dict(name="warp_ym", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/warp_ym.cu",
              replaces="facerecognizeonnx_tpu/ops/warp_pallas.py:101 (_kernel)", **ym),
         dict(name="gallery_topk", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/gallery_topk.cu",
-             replaces="facerecognizeonnx_tpu/ops/pallas_gallery.py:60 (_kernel)", **gallery),
+             replaces="facerecognizeonnx_tpu/ops/pallas_gallery.py:60 (_kernel)",
+             bench_launches=bench_launches["gallery_topk"], **gallery),
         dict(name="nms_greedy", route="cuda",
              source="facerecognizeonnx_tpu_torch/csrc/nms_greedy.cu",
              replaces="facerecognizeonnx_tpu/ops/nms.py:100-112 (nms_fixed's lax.while_loop; "
                       "no Pallas kernel)",
              launches=main_counts["nms_greedy"], **on_paths("nms_greedy"),
-             **nms_entry),
+             bench_launches=bench_launches["nms_greedy"], **nms_entry),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -20,6 +20,8 @@ Extras:
   train <root> --detector --det-gt gt.json   — SCRFD fine-tuning → --det-model
   eval <root> [--align] [--pairs-file f]     — verification accuracy, TAR@FAR
   eval <root> --det-gt gt.json               — detection AP
+  bench                                      — the benchmark's headline
+                                               config (bench.py), one JSON line
   doctor                                     — environment diagnosis
   --json                                     — one JSON document on stdout,
                                                human output on stderr
@@ -44,8 +46,7 @@ already it joins that group instead, and with --cpu it is one Gloo rank.
 Only rank 0 prints, writes `--out` and serves HTTP: it relays every
 request and bank update to the others (`pipeline/relay.py`). A rank that
 fails ends the command non-zero with its output. The other modes run on
-one device. Not ported, and raising NotImplementedError that names its
-ROADMAP.md note: the mode bench.
+one device.
 
 Headless by default: annotated images are written next to the input
 (`<name>_out.jpg`, which needs cv2 or PIL to encode); `--show` opens
@@ -70,11 +71,6 @@ from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, imread, imwrite
 from facerecognizeonnx_tpu_torch.parallel.distributed import EXIT_TIMEOUT_S
 from facerecognizeonnx_tpu_torch.pipeline.api import FaceDetector, FaceRecognizer
 from facerecognizeonnx_tpu_torch.utils.draw import draw_face_info
-
-UNPORTED_MODES = {
-    "bench": "the bench harness is not ported (ROADMAP.md, the note at Queue A item 8)",
-}
-
 
 def _load_models(args):
     detector = FaceDetector(_cfg(args), device=args.device)
@@ -483,6 +479,15 @@ def mode_identify(args):
     if len(images) == 1:  # keep the single-probe JSON contract
         result["faces"] = out_images[0]["faces"]
     return result
+
+
+def mode_bench(args):
+    """The benchmark's headline config in process (facerecognizeonnx_tpu_torch/
+    bench.py: the same JSON-line contract as `python -m
+    facerecognizeonnx_tpu_torch.bench --config headline`)."""
+    from facerecognizeonnx_tpu_torch import bench
+
+    return bench.main(["--config", "headline"] + (["--cpu"] if args.cpu else []))
 
 
 def mode_serve(args):
@@ -1251,8 +1256,6 @@ def main(argv=None):
 
 
 def _run(args):
-    if args.mode in UNPORTED_MODES:
-        raise NotImplementedError(f"{args.mode}: {UNPORTED_MODES[args.mode]}")
     if args.det_size and args.det_size % 32:
         # strides go to 32: the head grids are input_size//stride and must
         # tile the conv pyramid exactly
@@ -1283,9 +1286,11 @@ def _run(args):
         "train": mode_train,
         "eval": mode_eval,
         "doctor": mode_doctor,
+        "bench": mode_bench,
     }
     need = {"detect": 1, "compare": 2, "simple": 2, "webcam": 0, "enroll": 1,
-            "identify": 1, "serve": 0, "export": 1, "train": 1, "eval": 1, "doctor": 0}
+            "identify": 1, "serve": 0, "export": 1, "train": 1, "eval": 1, "doctor": 0,
+            "bench": 0}
     if len(args.images) < need[args.mode]:
         print("无效的命令或参数")
         return -1

@@ -172,17 +172,28 @@ def test_without_cuda_and_without_cpu(files, capsys, monkeypatch):
     assert out.out == "" and "torch.cuda.is_available() is False" in out.err
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["bench"], "item 8"), (["train"], None), (["eval"], None),
-])
-def test_unported_modes_and_options_raise(argv, item, files, tmp_path, capsys):
-    """bench raises NotImplementedError naming its ROADMAP.md note; train
-    and eval are ported and run on a two-identity folder of the test
-    images (train: two steps, its .npz loads as --rec-model)."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            cli.main(argv + ["--cpu"])
-        return
+@pytest.mark.parametrize("cpu", [True, False])
+def test_bench_mode_runs_the_headline_config(cpu, monkeypatch):
+    """`bench` calls the port's bench module with the headline config,
+    as the JAX CLI calls its bench.py; without --cpu and without a card
+    it refuses before the bench starts."""
+    from facerecognizeonnx_tpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda argv: calls.append(argv) or 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if cpu:
+        assert cli.main(["bench", "--cpu"]) == 0
+        assert calls == [["--config", "headline", "--cpu"]]
+    else:
+        assert cli.main(["bench"]) == -1
+        assert calls == []
+
+
+@pytest.mark.parametrize("argv", [["train"], ["eval"]])
+def test_unported_modes_and_options_raise(argv, files, tmp_path, capsys):
+    """train and eval are ported and run on a two-identity folder of the
+    test images (train: two steps, its .npz loads as --rec-model)."""
     _, paths, models = files
     data = tmp_path / "ids"
     for who, pair in (("a", paths[:2]), ("b", paths[1:])):

@@ -67,6 +67,8 @@ SLICE_MODULES = [
     "facerecognizeonnx_tpu_torch.cli",
     "facerecognizeonnx_tpu_torch.cli.main",
     "facerecognizeonnx_tpu_torch.__main__",
+    "facerecognizeonnx_tpu_torch.cli.__main__",
+    "facerecognizeonnx_tpu_torch.bench",
     "facerecognizeonnx_tpu_torch.parallel",
     "facerecognizeonnx_tpu_torch.parallel.distributed",
     "facerecognizeonnx_tpu_torch.parallel.mesh",
