@@ -1,0 +1,9 @@
+"""`_identify.device_idle` in the dense cells."""
+
+from benchmark.metrics import _identify
+
+UNIT = "%"
+
+
+def read(s):
+    return _identify.device_idle(s, "dense")

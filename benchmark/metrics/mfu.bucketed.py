@@ -1,0 +1,9 @@
+"""`_identify.mfu` in the bucketed cells."""
+
+from benchmark.metrics import _identify
+
+UNIT = "%"
+
+
+def read(s):
+    return _identify.mfu(s, "bucketed")
