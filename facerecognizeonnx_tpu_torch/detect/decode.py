@@ -17,6 +17,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from facerecognizeonnx_tpu_torch.utils import observability
+
 
 @functools.lru_cache(maxsize=16)
 def anchor_centers(input_size: int, stride: int, num_anchors: int = 2) -> np.ndarray:
@@ -56,18 +58,23 @@ def decode_outputs(
     num_anchors: int = 2,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """{stride: (scores, bbox, kps)} → scores (B, N), boxes (B, N, 4),
-    kps (B, N, 5, 2) in letterboxed-input pixels."""
-    all_scores, all_boxes, all_kps = [], [], []
-    for stride in sorted(outputs.keys()):
-        scores, bbox, kps = outputs[stride]
-        centers = torch.from_numpy(
-            anchor_centers(input_size, stride, num_anchors).copy()
-        ).to(scores.device)
-        all_scores.append(scores[..., 0])
-        all_boxes.append(distance2bbox(centers, bbox * stride))
-        all_kps.append(distance2kps(centers, kps * stride))
-    return (
-        torch.cat(all_scores, dim=-1),
-        torch.cat(all_boxes, dim=-2),
-        torch.cat(all_kps, dim=-3),
-    )
+    kps (B, N, 5, 2) in letterboxed-input pixels.
+
+    Each stride's anchor centres are uploaded from pageable host memory,
+    a copy that waits for the device's stream (counted in `host_waits`)."""
+    with observability.span("decode"):
+        all_scores, all_boxes, all_kps = [], [], []
+        for stride in sorted(outputs.keys()):
+            scores, bbox, kps = outputs[stride]
+            observability.host_wait(scores.device)
+            centers = torch.from_numpy(
+                anchor_centers(input_size, stride, num_anchors).copy()
+            ).to(scores.device)
+            all_scores.append(scores[..., 0])
+            all_boxes.append(distance2bbox(centers, bbox * stride))
+            all_kps.append(distance2kps(centers, kps * stride))
+        return (
+            torch.cat(all_scores, dim=-1),
+            torch.cat(all_boxes, dim=-2),
+            torch.cat(all_kps, dim=-3),
+        )

@@ -22,6 +22,7 @@ from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.ops.nms import gather_rows, nms_fixed
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.types import Detections
+from facerecognizeonnx_tpu_torch.utils.observability import span
 
 
 def nms_candidates(
@@ -62,28 +63,29 @@ def postprocess(
     letterbox scales (coords are divided by it BEFORE NMS, as in the
     reference); returns (B, max_faces) slots.
     """
-    nms_thr = cfg.nms_threshold if nms_threshold is None else nms_threshold
-    top_boxes, top_scores, top_kps, valid = nms_candidates(
-        scores, boxes, kps, scale, cfg, score_threshold
-    )
-    # top-k output is already descending → skip the re-sort in NMS
-    boxes_s, scores_s, keep, order = nms_fixed(
-        top_boxes, top_scores, nms_thr, valid, assume_sorted=True,
-        int_rects=cfg.nms_int_rects,
-    )
-    kps_s = gather_rows(top_kps, order)
+    with span("nms"):
+        nms_thr = cfg.nms_threshold if nms_threshold is None else nms_threshold
+        top_boxes, top_scores, top_kps, valid = nms_candidates(
+            scores, boxes, kps, scale, cfg, score_threshold
+        )
+        # top-k output is already descending → skip the re-sort in NMS
+        boxes_s, scores_s, keep, order = nms_fixed(
+            top_boxes, top_scores, nms_thr, valid, assume_sorted=True,
+            int_rects=cfg.nms_int_rects,
+        )
+        kps_s = gather_rows(top_kps, order)
 
-    # compact survivors to the front (the stable sort keeps score order)
-    sel = torch.argsort((~keep).to(torch.int32), dim=-1, stable=True)
-    sel = sel[:, : cfg.max_faces]
-    out_valid = gather_rows(keep, sel)
-    zero = torch.zeros((), dtype=boxes_s.dtype, device=boxes_s.device)
-    return Detections(
-        boxes=torch.where(out_valid[..., None], gather_rows(boxes_s, sel), zero),
-        scores=torch.where(out_valid, gather_rows(scores_s, sel), zero),
-        kps=torch.where(out_valid[..., None, None], gather_rows(kps_s, sel), zero),
-        valid=out_valid,
-    )
+        # compact survivors to the front (the stable sort keeps score order)
+        sel = torch.argsort((~keep).to(torch.int32), dim=-1, stable=True)
+        sel = sel[:, : cfg.max_faces]
+        out_valid = gather_rows(keep, sel)
+        zero = torch.zeros((), dtype=boxes_s.dtype, device=boxes_s.device)
+        return Detections(
+            boxes=torch.where(out_valid[..., None], gather_rows(boxes_s, sel), zero),
+            scores=torch.where(out_valid, gather_rows(scores_s, sel), zero),
+            kps=torch.where(out_valid[..., None, None], gather_rows(kps_s, sel), zero),
+            valid=out_valid,
+        )
 
 
 def detect_program(

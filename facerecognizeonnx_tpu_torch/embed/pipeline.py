@@ -20,6 +20,7 @@ from facerecognizeonnx_tpu_torch.ops.umeyama import ARCFACE_DST_5PTS, umeyama
 from facerecognizeonnx_tpu_torch.ops.warp import crop_resize_affine, warp_affine_batch
 from facerecognizeonnx_tpu_torch.ops.warp_banded import warp_affine_banded
 from facerecognizeonnx_tpu_torch.ops.warp_cuda import warp_affine_xm
+from facerecognizeonnx_tpu_torch.utils.observability import span
 
 
 def _align_matrices(kps, boxes, h, w, size):
@@ -54,25 +55,26 @@ def align_faces_batch(
     the gather and banded warps). valid (B, K): invalid slots are zeros
     in the output space (the CUDA warp skips their reads). warp_impl
     "pallas" runs the CUDA kernel, which has its semantics."""
-    size = cfg.rec_input_size
-    h, w = frames_u8.shape[1], frames_u8.shape[2]
-    M_sel = _align_matrices(kps, boxes, h, w, size)
-    if cfg.warp_impl in ("cuda", "pallas"):
-        return warp_affine_xm(
-            frames_u8.to(torch.uint8),
-            M_sel,
-            epilogue=(cfg.pixel_mean, cfg.pixel_scale) if normalized else None,
-            valid=valid,
-        )
-    if cfg.warp_impl == "banded":
-        crops = warp_affine_banded(frames_u8.to(torch.uint8), M_sel, size)
-    else:
-        crops = warp_affine_batch(frames_u8, M_sel, size, size)
-    if normalized:
-        crops = normalize_to_rgb(crops, cfg.pixel_mean, cfg.pixel_scale)
-    if valid is not None:
-        crops = crops * valid[..., None, None, None].to(crops.dtype)
-    return crops
+    with span("align"):
+        size = cfg.rec_input_size
+        h, w = frames_u8.shape[1], frames_u8.shape[2]
+        M_sel = _align_matrices(kps, boxes, h, w, size)
+        if cfg.warp_impl in ("cuda", "pallas"):
+            return warp_affine_xm(
+                frames_u8.to(torch.uint8),
+                M_sel,
+                epilogue=(cfg.pixel_mean, cfg.pixel_scale) if normalized else None,
+                valid=valid,
+            )
+        if cfg.warp_impl == "banded":
+            crops = warp_affine_banded(frames_u8.to(torch.uint8), M_sel, size)
+        else:
+            crops = warp_affine_batch(frames_u8, M_sel, size, size)
+        if normalized:
+            crops = normalize_to_rgb(crops, cfg.pixel_mean, cfg.pixel_scale)
+        if valid is not None:
+            crops = crops * valid[..., None, None, None].to(crops.dtype)
+        return crops
 
 
 def align_faces(
@@ -99,11 +101,12 @@ def embed_crops(
 
     normalized=True: crops are already (px-mean)/scale RGB."""
     dtype = cfg.torch_compute_dtype if compute_dtype is None else compute_dtype
-    if normalized:
-        x = crops.to(dtype)
-    else:
-        x = normalize_to_rgb(crops, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
-    return l2_normalize(recognizer_apply(model, x, dtype))
+    with span("embed"):
+        if normalized:
+            x = crops.to(dtype)
+        else:
+            x = normalize_to_rgb(crops, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
+        return l2_normalize(recognizer_apply(model, x, dtype))
 
 
 def embed_program(

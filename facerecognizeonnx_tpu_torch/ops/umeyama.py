@@ -12,6 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from facerecognizeonnx_tpu_torch.utils import observability
+
 # L-eye, R-eye, nose, L-mouth, R-mouth on the 112x112 crop
 ARCFACE_DST_5PTS = np.array(
     [
@@ -32,6 +34,8 @@ def umeyama(src: torch.Tensor, dst) -> Tuple[torch.Tensor, torch.Tensor]:
     Returns (M (..., 2, 3) with dst ≈ M[:, :2] @ src + M[:, 2], valid
     (...,) bool — False when the fit is degenerate)."""
     src = src.to(torch.float32)
+    if not (isinstance(dst, torch.Tensor) and dst.device == src.device):
+        observability.host_wait(src.device)  # a copy from host memory waits for the stream
     dst = torch.as_tensor(dst, dtype=torch.float32, device=src.device).expand(src.shape)
 
     mu_s = src.mean(dim=-2, keepdim=True)

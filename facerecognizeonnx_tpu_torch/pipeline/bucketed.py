@@ -19,8 +19,10 @@ behind program A and records an event, and only `finish()` waits on it.
 A guess that falls short is corrected exactly by running program B again
 at the right bucket. Buckets are powers of two from MIN_BUCKET up.
 
-Nothing in `start()` waits for the host: on the card the NMS is a kernel
-(csrc/nms_greedy.cu).
+On the card the NMS is a kernel (csrc/nms_greedy.cu), so `start()` waits
+for the device's stream only where the detector's post-processing
+uploads constants from host memory (the anchor centres, the ArcFace
+template; counted in the tracer's `host_waits`).
 
 With `mesh` both programs run on each rank's block of the batch over
 the mesh's `mesh_axis` (every rank makes the same calls with the global
@@ -53,6 +55,8 @@ from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.pipeline.fused import detect_topk
 from facerecognizeonnx_tpu_torch.types import Detections
+from facerecognizeonnx_tpu_torch.utils import observability
+from facerecognizeonnx_tpu_torch.utils.observability import span
 
 MIN_BUCKET = 32  # the smallest embed batch worth its own shape
 
@@ -79,12 +83,13 @@ def detect_and_compact(
         valid=top.valid if cfg.skip_invalid_faces else None,
         normalized=True,
     )
-    b, k = crops.shape[0], crops.shape[1]
-    valid_flat = top.valid.reshape(b * k)
-    # a stable sort on 0 (valid) / 1 (invalid) keys: frame-major order kept
-    perm = torch.argsort((~valid_flat).to(torch.uint8), stable=True)
-    crops_c = crops.reshape((b * k,) + crops.shape[2:])[perm]
-    counts = top.valid.sum(dim=1, dtype=torch.int32)
+    with span("compact"):
+        b, k = crops.shape[0], crops.shape[1]
+        valid_flat = top.valid.reshape(b * k)
+        # a stable sort on 0 (valid) / 1 (invalid) keys: frame-major order kept
+        perm = torch.argsort((~valid_flat).to(torch.uint8), stable=True)
+        crops_c = crops.reshape((b * k,) + crops.shape[2:])[perm]
+        counts = top.valid.sum(dim=1, dtype=torch.int32)
     return dets, crops_c, perm, valid_flat, counts
 
 
@@ -134,10 +139,11 @@ def embed_compacted_matches(
         arc_model, crops_c, perm, valid_flat, cfg, max_faces_embed, bucket, compute_dtype,
     )
     b, k, d = feats.shape
-    sims = similarity_matrix(feats.reshape(b * k, d), bank_padded)
-    mask = torch.arange(bank_padded.shape[0], device=sims.device)[None, :] < n_rows
-    sims = torch.where(mask, sims, torch.full_like(sims, -1.0))
-    v, i = topk_stable(sims, top_k)
+    with span("match"):
+        sims = similarity_matrix(feats.reshape(b * k, d), bank_padded)
+        mask = torch.arange(bank_padded.shape[0], device=sims.device)[None, :] < n_rows
+        sims = torch.where(mask, sims, torch.full_like(sims, -1.0))
+        v, i = topk_stable(sims, top_k)
     return feats, v.reshape(b, k, top_k), i.to(torch.int32).reshape(b, k, top_k)
 
 
@@ -267,83 +273,88 @@ class BucketedEmbedPipeline:
                 "bank_padded AND n_rows must be passed exactly when the "
                 "pipeline was built with search_top_k"
             )
-        if self.mesh is not None:
-            from facerecognizeonnx_tpu_torch.parallel.mesh import block, gather_rows
+        with span("start"):
+            if self.mesh is not None:
+                from facerecognizeonnx_tpu_torch.parallel.mesh import block, gather_rows
 
-            frames_u8 = block(torch.as_tensor(frames_u8), self.mesh, self.mesh_axis)
-        with torch.no_grad():
-            dets, crops_c, perm, valid_flat, counts = detect_and_compact(
-                self.det, frames_u8.to(self.device), self.cfg, self.k, self.compute_dtype,
-                self.valid_cap,
-            )
-        if self.mesh is not None:  # every rank sizes the bucket from all counts
-            counts = gather_rows(counts, self.mesh, self.mesh_axis)
-        if counts.is_cuda:
-            host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
-            host.copy_(counts, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host, ready = counts, None
-        b = counts.shape[0]
-        local_b = b // self._n_shards
-        total = local_b * self.k
-        n_frames = b if n_frames is None else n_frames
-        # guess from the previous step's occupancy of real frames (the
-        # first step guesses full occupancy)
-        if self._last_rate is None:
-            guess = self._pick(total, total)
-        else:
-            guess = self._pick(int(math.ceil(self._last_rate * local_b)), total)
-        bank = None if self.search_top_k is None else (bank_padded.to(self.device), n_rows)
-        ops = (crops_c, perm, valid_flat)
-        feats, matches = self._embed(guess, ops, bank) if guess > 0 else (None, None)
-        return _Pending(dets, host, ready, feats, matches, guess, n_frames, bank, ops)
+                frames_u8 = block(torch.as_tensor(frames_u8), self.mesh, self.mesh_axis)
+            with torch.no_grad():
+                dets, crops_c, perm, valid_flat, counts = detect_and_compact(
+                    self.det, frames_u8.to(self.device), self.cfg, self.k, self.compute_dtype,
+                    self.valid_cap,
+                )
+            if self.mesh is not None:  # every rank sizes the bucket from all counts
+                counts = gather_rows(counts, self.mesh, self.mesh_axis)
+            if counts.is_cuda:
+                host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+                host.copy_(counts, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host, ready = counts, None
+            b = counts.shape[0]
+            local_b = b // self._n_shards
+            total = local_b * self.k
+            n_frames = b if n_frames is None else n_frames
+            # guess from the previous step's occupancy of real frames (the
+            # first step guesses full occupancy)
+            if self._last_rate is None:
+                guess = self._pick(total, total)
+            else:
+                guess = self._pick(int(math.ceil(self._last_rate * local_b)), total)
+            bank = None if self.search_top_k is None else (bank_padded.to(self.device), n_rows)
+            ops = (crops_c, perm, valid_flat)
+            feats, matches = self._embed(guess, ops, bank) if guess > 0 else (None, None)
+            return _Pending(dets, host, ready, feats, matches, guess, n_frames, bank, ops)
 
     def finish(self, pend: _Pending):
         """Wait for the counts, correct a short guess, return (dets,
         feats, n_valid), or (dets, feats, sims, idx, n_valid) with the
         search. n_valid counts the occupied slots of real frames only."""
-        if pend.ready is not None:
-            pend.ready.synchronize()
-        real = pend.counts.numpy().astype(np.int64)
-        b = real.shape[0]
-        local_b = b // self._n_shards
-        total = local_b * self.k
-        real[pend.n_frames:] = 0  # pad frames do not count
-        n = int(real.sum())
-        self.steps += 1
-        self._last_rate = n / max(1, pend.n_frames)
-        # each rank embeds its own first `bucket` compacted crops, so the
-        # bucket covers the most occupied rank's real crops
-        need = self._pick(int(real.reshape(self._n_shards, local_b).sum(axis=1).max()), total)
-        feats, matches = pend.feats, pend.matches
-        if need > pend.guess:  # the guess fell short: run program B again
-            if pend.guess > 0:
-                self.corrections += 1  # a guessed embed is thrown away
-            feats, matches = self._embed(need, pend.ops, pend.bank)
-            self.last_bucket = need
-        else:
-            self.last_bucket = max(need, pend.guess) if pend.guess else need
-        if feats is None:  # no faces anywhere: nothing was embedded
-            dev = pend.ops[0].device
-            feats = torch.zeros((local_b, self.k, self.cfg.feature_dim), device=dev)
+        with span("finish"):
+            with span("counts_wait"):
+                if pend.ready is not None:
+                    observability.host_wait(pend.ops[0].device)
+                    pend.ready.synchronize()
+            real = pend.counts.numpy().astype(np.int64)
+            b = real.shape[0]
+            local_b = b // self._n_shards
+            total = local_b * self.k
+            real[pend.n_frames:] = 0  # pad frames do not count
+            n = int(real.sum())
+            self.steps += 1
+            self._last_rate = n / max(1, pend.n_frames)
+            # each rank embeds its own first `bucket` compacted crops, so the
+            # bucket covers the most occupied rank's real crops
+            need = self._pick(int(real.reshape(self._n_shards, local_b).sum(axis=1).max()), total)
+            feats, matches = pend.feats, pend.matches
+            if need > pend.guess:  # the guess fell short: run program B again
+                if pend.guess > 0:
+                    self.corrections += 1  # a guessed embed is thrown away
+                with span("rerun"):
+                    feats, matches = self._embed(need, pend.ops, pend.bank)
+                self.last_bucket = need
+            else:
+                self.last_bucket = max(need, pend.guess) if pend.guess else need
+            if feats is None:  # no faces anywhere: nothing was embedded
+                dev = pend.ops[0].device
+                feats = torch.zeros((local_b, self.k, self.cfg.feature_dim), device=dev)
+                if pend.bank is not None:
+                    shape = (local_b, self.k, self.search_top_k)
+                    matches = (torch.zeros(shape, device=dev),
+                               torch.zeros(shape, dtype=torch.int32, device=dev))
+            dets = pend.dets
+            if self.mesh is not None:  # the global batch on every rank
+                from facerecognizeonnx_tpu_torch.parallel.mesh import gather_rows
+
+                def join(t):
+                    return gather_rows(t, self.mesh, self.mesh_axis)
+
+                dets, feats = Detections(*(join(t) for t in dets)), join(feats)
+                matches = None if matches is None else tuple(join(t) for t in matches)
             if pend.bank is not None:
-                shape = (local_b, self.k, self.search_top_k)
-                matches = (torch.zeros(shape, device=dev),
-                           torch.zeros(shape, dtype=torch.int32, device=dev))
-        dets = pend.dets
-        if self.mesh is not None:  # the global batch on every rank
-            from facerecognizeonnx_tpu_torch.parallel.mesh import gather_rows
-
-            def join(t):
-                return gather_rows(t, self.mesh, self.mesh_axis)
-
-            dets, feats = Detections(*(join(t) for t in dets)), join(feats)
-            matches = None if matches is None else tuple(join(t) for t in matches)
-        if pend.bank is not None:
-            return dets, feats, matches[0], matches[1], n
-        return dets, feats, n
+                return dets, feats, matches[0], matches[1], n
+            return dets, feats, n
 
     def __call__(self, frames_u8, bank_padded=None, n_rows=None):
         return self.finish(self.start(frames_u8, bank_padded=bank_padded, n_rows=n_rows))

@@ -21,6 +21,7 @@ from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
 from facerecognizeonnx_tpu_torch.ops.image import normalize_to_rgb
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.types import Detections
+from facerecognizeonnx_tpu_torch.utils.observability import span
 
 
 def detect_topk(
@@ -37,24 +38,25 @@ def detect_topk(
     `valid_cap` of the K embed slots count as occupied, whatever the
     detector found. Leave None in production."""
     dtype = cfg.torch_compute_dtype if compute_dtype is None else compute_dtype
-    x = normalize_to_rgb(frames_u8, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
-    scores, boxes, kps = decode_outputs(
-        det_model(x, dtype), cfg.det_input_size, cfg.num_anchors
-    )
+    with span("detect"):
+        x = normalize_to_rgb(frames_u8, cfg.pixel_mean, cfg.pixel_scale, dtype=dtype)
+        outputs = det_model(x, dtype)
+    scores, boxes, kps = decode_outputs(outputs, cfg.det_input_size, cfg.num_anchors)
     dets = postprocess(scores, boxes, kps, 1.0, cfg)
 
-    k = max_faces_embed
-    valid_k = dets.valid[:, :k]
-    if valid_cap is not None:
-        valid_k = (
-            torch.arange(k, device=valid_k.device)[None, :] < valid_cap
-        ).expand(valid_k.shape)
-    top = Detections(
-        boxes=dets.boxes[:, :k],
-        scores=dets.scores[:, :k],
-        kps=dets.kps[:, :k],
-        valid=valid_k,
-    )
+    with span("nms"):  # the top-K slot cut
+        k = max_faces_embed
+        valid_k = dets.valid[:, :k]
+        if valid_cap is not None:
+            valid_k = (
+                torch.arange(k, device=valid_k.device)[None, :] < valid_cap
+            ).expand(valid_k.shape)
+        top = Detections(
+            boxes=dets.boxes[:, :k],
+            scores=dets.scores[:, :k],
+            kps=dets.kps[:, :k],
+            valid=valid_k,
+        )
     return dets, top
 
 
@@ -107,13 +109,15 @@ def frames_to_matches(
     Returns (Detections, (B, K, D) feats, (B, K, top_k) sims on the
     (cos+1)/2 scale, (B, K, top_k) int32 row indices, as `lax.top_k`
     gives them); masked entries carry sim −1."""
-    dets, feats = frames_to_features(
-        det_model, rec_model, frames_u8, cfg, max_faces_embed, compute_dtype,
-        valid_cap,
-    )
-    b, k, d = feats.shape
-    sims = similarity_matrix(feats.reshape(b * k, d), bank_padded)
-    mask = torch.arange(bank_padded.shape[0], device=sims.device)[None, :] < n_rows
-    sims = torch.where(mask, sims, torch.full_like(sims, -1.0))
-    v, i = topk_stable(sims, top_k)
-    return dets, feats, v.reshape(b, k, top_k), i.to(torch.int32).reshape(b, k, top_k)
+    with span("identify"):
+        dets, feats = frames_to_features(
+            det_model, rec_model, frames_u8, cfg, max_faces_embed, compute_dtype,
+            valid_cap,
+        )
+        b, k, d = feats.shape
+        with span("match"):
+            sims = similarity_matrix(feats.reshape(b * k, d), bank_padded)
+            mask = torch.arange(bank_padded.shape[0], device=sims.device)[None, :] < n_rows
+            sims = torch.where(mask, sims, torch.full_like(sims, -1.0))
+            v, i = topk_stable(sims, top_k)
+        return dets, feats, v.reshape(b, k, top_k), i.to(torch.int32).reshape(b, k, top_k)

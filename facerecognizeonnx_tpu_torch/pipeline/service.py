@@ -72,6 +72,8 @@ from facerecognizeonnx_tpu_torch.pipeline.aot import load_bundle
 from facerecognizeonnx_tpu_torch.pipeline.bucketed import BucketedEmbedPipeline
 from facerecognizeonnx_tpu_torch.pipeline.fused import frames_to_features, frames_to_matches
 from facerecognizeonnx_tpu_torch.types import Detections
+from facerecognizeonnx_tpu_torch.utils import observability
+from facerecognizeonnx_tpu_torch.utils.observability import span
 
 @dataclass
 class IdentifyResult:
@@ -254,6 +256,12 @@ class IdentifyService:
                 "p99": round(float(np.percentile(lat, 99)), 3),
                 "window": int(lat.size),
             }
+        if observability.enabled():
+            # the tracer's tallies are the process's: every pipeline's
+            # spans since its last reset, in calls and host ms
+            spans = observability.snapshot()["spans"]
+            out["spans"] = {k: {"calls": v["calls"], "host_ms": round(v["host_s"] * 1e3, 3)}
+                            for k, v in spans.items()}
         return out
 
     def close(self):
@@ -383,17 +391,21 @@ class IdentifyService:
                     req.future.set_exception(e)
 
     def _dispatch(self, batch: List[_Request]) -> dict:
-        """Host letterbox + device program launch (nothing waits for the
-        device here)."""
+        """Host letterbox + device program launch (waiting for the device
+        only where the program's post-processing uploads constants from
+        host memory: the tracer's `host_waits`)."""
         frames, scales = [], []
-        for req in batch:
-            padded, scale = self._letterbox(req.image)
-            frames.append(padded)
-            scales.append(scale)
-        stacked = np.stack(frames + [frames[-1]] * (self.max_batch - len(frames)))
-        x = torch.from_numpy(stacked)
+        with span("letterbox"):
+            for req in batch:
+                padded, scale = self._letterbox(req.image)
+                frames.append(padded)
+                scales.append(scale)
+        with span("stack"):
+            stacked = np.stack(frames + [frames[-1]] * (self.max_batch - len(frames)))
+            x = torch.from_numpy(stacked)
         if self.mesh is None:  # a mesh program moves each rank's block itself
-            x = x.to(self.device, non_blocking=True)
+            with span("upload"):
+                x = x.to(self.device, non_blocking=True)
         # ONE bank snapshot answers this whole batch
         store = self.bank._store
         ctx = {"batch": batch, "scales": scales, "store": store}
@@ -429,6 +441,10 @@ class IdentifyService:
 
     def _resolve(self, ctx: dict):
         """Host fetch + per-request postprocess and future resolution."""
+        with span("resolve"):
+            self._resolve_batch(ctx)
+
+    def _resolve_batch(self, ctx: dict):
         batch, scales, store = ctx["batch"], ctx["scales"], ctx["store"]
         n_rows = len(store.names)
         wide = any(r.top_k > self.search_top_k for r in batch)

@@ -96,13 +96,26 @@ def test_max_frames_stops_the_stream(runs):
 
 
 def test_observability_timer_counter_and_trace(tmp_path):
-    from facerecognizeonnx_tpu_torch.utils.observability import Counter, StageTimer, trace
+    from facerecognizeonnx_tpu_torch.utils import observability as obs
+    from facerecognizeonnx_tpu_torch.utils.observability import Counter, trace
 
-    timer, off = StageTimer(), StageTimer(enabled=False)
-    for _ in range(3):
-        with timer.stage("a"), off.stage("a"):
-            torch.ones(4).sum()
-    assert timer.counts["a"] == 3 and "a: " in timer.report() and not off.counts
+    obs.reset()
+    for _ in range(3):  # inactive: nothing is timed or counted
+        with obs.span("a"):
+            obs.count("faces", 8)
+    assert obs.snapshot() == {"spans": {}, "counters": {}}
+    obs.enable()
+    try:
+        for _ in range(3):
+            with obs.span("a"):
+                obs.count("faces", 8)
+                torch.ones(4).sum()
+        snap = obs.snapshot()
+    finally:
+        obs.enable(False)
+        obs.reset()
+    assert snap["spans"]["a"]["calls"] == 3 and snap["spans"]["a"]["host_s"] > 0
+    assert snap["counters"] == {"faces": 24}
     counter = Counter("faces")
     with counter.event(items=8):
         pass
