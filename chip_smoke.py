@@ -167,6 +167,13 @@ Phases (any failure exits non-zero; there is no CPU path):
      (int_rects True and False, K=512, B=1 and B=16, valid masks with
      holes); kernel and plain times at phase 5's candidates beside the
      bound
+ 14b. the IResNet epilogue (csrc/conv_epilogue.cu) vs its plain version,
+     bit for bit, in each form at C = 64 / 128 / 256 / 512 with ties, NaN,
+     ±inf and −0.0 planted; the folded IResNet-50 at B=512 in bf16, fused
+     vs eager (`arcface.fusable` patched off), features bit for bit; the
+     kernel's time over one forward's 49 calls beside its bytes bound and
+     the plain versions'; no launch on MobileFaceNet or the detector.
+     `python3 chip_smoke.py --only conv_epilogue` runs this phase alone
  15. the fused step as AOT bundles (pipeline/aot.py): (a) `save_bundle`
      of phase 5's models (bf16, B=8, K=8, 640²), `load_bundle` onto the
      card, the step captured as one CUDA graph at the first call and
@@ -300,6 +307,7 @@ import sys
 import tempfile
 import threading
 import time
+import unittest.mock
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
@@ -319,8 +327,8 @@ from facerecognizeonnx_tpu_torch.embed.pipeline import (
 from facerecognizeonnx_tpu_torch.io.imageio import VideoSource, decode_image, imread
 from facerecognizeonnx_tpu_torch.match.gallery import GalleryBank
 from facerecognizeonnx_tpu_torch.match.similarity import similarity_matrix
-from facerecognizeonnx_tpu_torch.models import arcface, packs, quant, scrfd
-from facerecognizeonnx_tpu_torch.ops import gallery_cuda, nms, warp_cuda
+from facerecognizeonnx_tpu_torch.models import arcface, layers, packs, quant, scrfd
+from facerecognizeonnx_tpu_torch.ops import conv_epilogue, gallery_cuda, nms, warp_cuda
 from facerecognizeonnx_tpu_torch.ops.image import letterbox, normalize_to_rgb
 from facerecognizeonnx_tpu_torch.ops.topk import topk_stable
 from facerecognizeonnx_tpu_torch.pipeline import aot, bucketed
@@ -365,6 +373,7 @@ BUILDS = {
     "csrc/warp_ym.cu": warp_cuda.build_library_ym,
     "csrc/gallery_topk.cu": gallery_cuda.build_library,
     "csrc/nms_greedy.cu": nms.build_library,
+    "csrc/conv_epilogue.cu": conv_epilogue.build_library,
     # the host runtime (g++), built beside the kernels
     "runtime/cc/frt_runtime.cc": lambda: (native._load(), ""),
 }
@@ -2397,6 +2406,190 @@ def phase_nms(dev, rng, det, frames, cfg) -> dict:
                 library_ms=None, max_abs_err=0.0)
 
 
+CONV_EPILOGUE_ENTRY = dict(
+    name="conv_epilogue", route="cuda", source="facerecognizeonnx_tpu_torch/csrc/conv_epilogue.cu",
+    replaces="no Pallas kernel: the eager passes between a folded bf16 IResNet's convolutions "
+             "(XLA fuses them in the JAX package)",
+)
+# the forms of the IResNet epilogue: (alpha, identity, bn, write_f32, write_bf16)
+EPILOGUE_FORMS = {
+    "stem": (True, None, True, True, True),
+    "conv1": (True, None, False, True, False),
+    "conv2 + residual": (False, "res", True, False, True),
+    "conv2 + shortcut conv": (False, "down", True, True, False),
+    "last conv2": (False, "res", True, False, False),
+}
+
+
+def jitter_bn(tree, rng):
+    """In place: a param tree's BatchNorm statistics and affines and PReLU
+    slopes drawn from `rng`, in place of the initializer's (0, 1, 1, 0 and
+    0.25). Returns the tree."""
+    for sub in tree.values() if isinstance(tree, dict) else tree:
+        if isinstance(sub, dict) and {"scale", "bias", "mean", "var"} <= set(sub):
+            c = sub["mean"].shape
+            sub["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+            sub["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+            sub["mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+            sub["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        elif isinstance(sub, dict) and set(sub) == {"alpha"}:
+            sub["alpha"] = rng.uniform(-0.1, 0.5, sub["alpha"].shape).astype(np.float32)
+        elif isinstance(sub, (dict, list)):
+            jitter_bn(sub, rng)
+    return tree
+
+
+def epilogue_case(gen, dev, form, shape):
+    """Seeded inputs of one epilogue form at `shape` (N, C, H, W), every
+    activation channels-last: y with bf16 ties of y + bias, NaN, ±inf and
+    −0.0 planted, a bias with −0.0 channels, PReLU slopes of both signs, a
+    residual with NaN and −0.0. Returns conv_epilogue's keyword arguments."""
+    alpha_on, identity, bn_on, write_f32, write_bf16 = EPILOGUE_FORMS[form]
+    N, C, H, W = shape
+
+    def cl(t):
+        return t.contiguous(memory_format=torch.channels_last).to(dev)
+
+    bias = torch.randn(C, generator=gen)
+    bias[::7] = -0.0
+    # y + bias exactly halfway between two bf16 values (Sterbenz: exact)
+    m = bias.to(torch.bfloat16)
+    nxt = (m.view(torch.int16) + 1).view(torch.bfloat16)
+    tie = (m.float() + nxt.float()) * 0.5
+    y = torch.randn(shape, generator=gen) * 3
+    y[:, :, ::3] = (tie - bias).view(1, C, 1, 1).expand(N, C, H, W)[:, :, ::3]
+    flat = y.view(-1)
+    idx = torch.randperm(flat.numel(), generator=gen)[:64]
+    flat[idx[:16]] = float("nan")
+    flat[idx[16:24]] = float("inf")
+    flat[idx[24:32]] = float("-inf")
+    flat[idx[32:]] = -0.0
+    kw = dict(y=cl(y), bias=bias.to(dev), write_f32=write_f32, write_bf16=write_bf16)
+    if alpha_on:
+        kw["alpha"] = (torch.rand(C, generator=gen) * 0.6 - 0.1).to(torch.bfloat16).float().to(dev)
+    if identity == "res":
+        r = torch.randn(shape, generator=gen).to(torch.bfloat16)
+        r.view(-1)[idx[:8]] = float("nan")
+        r.view(-1)[idx[40:]] = -0.0
+        kw["res"] = cl(r)
+    elif identity == "down":
+        kw["down"] = (cl(torch.randn(shape, generator=gen) * 2), torch.randn(C, generator=gen).to(dev))
+    if bn_on:
+        bn = layers.BatchNorm(torch.rand(C, generator=gen) + 0.5, torch.randn(C, generator=gen),
+                              torch.randn(C, generator=gen), torch.rand(C, generator=gen) + 0.5)
+        kw["bn"] = arcface.bn_tables(bn.to(dev))
+    return kw
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and bits (NaN payloads and the sign of zero included)."""
+    if a is None or b is None:
+        return a is None and b is None
+    as_int = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(as_int), b.view(as_int))
+
+
+def phase_conv_epilogue(dev) -> dict:
+    """csrc/conv_epilogue.cu vs its plain version, bit for bit, in every
+    form at C = 64 / 128 / 256 / 512; the folded IResNet-50 at B=512 in
+    bf16, fused vs eager; the kernel's time over one forward's 49 calls
+    beside its bytes bound and the plain versions' time; launches on the
+    MobileFaceNet and detector forwards. Returns its kernels-line entry."""
+    gen = torch.Generator().manual_seed(19)
+    checked = 0
+    for C, hw in ((64, (14, 14)), (128, (14, 9)), (256, (7, 9)), (512, (7, 7))):
+        for form in EPILOGUE_FORMS:
+            kw = epilogue_case(gen, dev, form, (3, C, *hw))
+            got = conv_epilogue.conv_epilogue(**kw)
+            want = conv_epilogue.conv_epilogue_reference(**kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("f32", "bf16", "bn"), got, want):
+                assert same_bits(a, b), f"conv_epilogue vs plain, {form} C={C}: {name} differs"
+                checked += 0 if a is None else a.numel()
+    log(f"conv_epilogue vs plain, bit for bit: {len(EPILOGUE_FORMS)} forms at C = 64 / 128 / "
+        f"256 / 512, {checked:,} outputs (ties, NaN, ±inf and −0.0 planted)")
+
+    B = 512
+    rng = np.random.default_rng(19)
+    tree = jitter_bn(bridge.init_params_numpy("iresnet50", seed=1), rng)
+    rec = arcface.fold_inference_params(bridge.params_from_numpy(tree, dev))
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, 112, 112, 3)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    bf16 = torch.bfloat16
+
+    def eager():
+        with unittest.mock.patch.object(arcface, "fusable", lambda *a: False):
+            return rec(x, bf16)
+
+    calls, launch = [], arcface.conv_epilogue
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return launch(*args, **kw)
+
+    with torch.no_grad():
+        conv_epilogue.conv_epilogue.launches = 0
+        fused = rec(x, bf16)
+        torch.cuda.synchronize()
+        per_forward = conv_epilogue.conv_epilogue.launches
+        n_blocks = sum(len(s) for s in rec.stages)
+        assert per_forward == 1 + 2 * n_blocks, per_forward
+        want = eager()
+        assert torch.isfinite(want).all(), "the eager IResNet-50 gave non-finite features"
+        err = float((fused - want).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(fused, want).min())
+        fused_ms, eager_ms = in_turns(eager_timer(lambda: rec(x, bf16)), eager_timer(eager),
+                                      iters=10)
+        fused_ops, eager_ops = device_ops(lambda: rec(x, bf16))[0], device_ops(eager)[0]
+        with unittest.mock.patch.object(arcface, "conv_epilogue", recorded):
+            rec(x, bf16)
+        n_bytes = 0
+        for args, kw in calls:
+            y = args[0]
+            n_out = 4 * kw.get("write_f32", False) + 2 * kw.get("write_bf16", False)
+            n_out += 4 * (kw.get("bn") is not None)
+            n_in = 4 + (2 if kw.get("res") is not None else 0)
+            n_in += 4 if kw.get("down") is not None else 0
+            n_bytes += y.numel() * (n_in + n_out)
+
+        def kernels():
+            for args, kw in calls:
+                launch(*args, **kw)
+
+        def plains():
+            for args, kw in calls:
+                conv_epilogue.conv_epilogue_reference(*args, **kw)
+
+        kernel_ms, plain_ms = in_turns(graph_timer(kernels), eager_timer(plains), iters=10)
+        del calls[:]
+        # the other recognizer and the detector launch none
+        conv_epilogue.conv_epilogue.launches = 0
+        mbf = bridge.params_from_numpy(bridge.init_params_numpy("mbf", seed=2), dev)
+        mbf(x[:64], bf16)
+        det = scrfd.fold_inference_params(
+            bridge.params_from_numpy(bridge.init_params_numpy("500m", seed=0), dev))
+        det(torch.zeros((2, 640, 640, 3), device=dev), bf16)
+        torch.cuda.synchronize()
+        other = conv_epilogue.conv_epilogue.launches
+        assert other == 0, other
+    bound, bound_by = bound_ms(n_bytes, 0.0)
+    assert same_bits(fused, want), (
+        f"fused IResNet-50 vs eager at B={B}: features differ by {err:.3g} (min cos {cos:.7f})")
+    log(f"IResNet-50 folded, bf16, B={B} crops: fused vs eager features bit for bit; "
+        f"{per_forward} conv_epilogue launches a forward; device operations {fused_ops} "
+        f"(fused) / {eager_ops} (eager); forward (median of 10 in turns) {fused_ms:.3f} ms "
+        f"fused, {eager_ms:.3f} ms eager | the 49 epilogues: kernel {kernel_ms:.4f} ms "
+        f"(CUDA-graph replays), plain {plain_ms:.4f} ms (eager), bound {bound:.4f} ms "
+        f"({bound_by}, {n_bytes / 1e9:.2f} GB) | MobileFaceNet and detector forwards: "
+        f"{other} launches | card: {nvidia_smi()}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, max_abs_err=0.0, launches=per_forward,
+                mobilefacenet_launches=0, detector_launches=0, shape=f"IResNet-50, B={B}",
+                forward_ms=dict(fused=fused_ms, eager=eager_ms),
+                device_ops=dict(fused=fused_ops, eager=eager_ops))
+
+
 def _bundle_state(path: str):
     """The leaves of a .frtz bundle as {"det": state_dict, "rec": state_dict}
     (meta.json's names, params.npz's index-keyed arrays)."""
@@ -3302,6 +3495,14 @@ def main() -> int:
     log("TF32 off for matmuls; cuDNN convolutions take TF32 (exact on the bf16 path's "
         "operands) except inside the float32 checks (tf32_off)")
 
+    if sys.argv[1:] == ["--only", "conv_epilogue"]:
+        # the epilogue kernel's phase alone (its build, checks and times)
+        log(f"build csrc/conv_epilogue.cu: {conv_epilogue.build_library()[1].strip()}")
+        entry = phase_conv_epilogue(dev)
+        log(json.dumps({"kernels": [dict(CONV_EPILOGUE_ENTRY, **entry)]}))
+        log(smi)
+        return 0
+
     # ---- 2. build every kernel source
     phase(2)
     build_all()
@@ -3365,9 +3566,13 @@ def main() -> int:
 
     with torch.no_grad():
         reset_counts()
+        conv_epilogue.conv_epilogue.launches = 0
         dets, feats, sims, idx = run(cfg)
         torch.cuda.synchronize()
         main_counts = read_counts()
+        main_epilogues = conv_epilogue.conv_epilogue.launches
+        assert main_epilogues > 0 and main_epilogues % 49 == 0, \
+            f"the main path's IResNet-50 launched {main_epilogues} epilogues, not 49 a forward"
         main_launches = main_counts["warp_xm"]
         assert main_launches > 0, "the main path did not launch the warp kernel"
         assert main_counts["warp_xm_pyramid"] > 0, "the main path built no pyramid"
@@ -3472,6 +3677,11 @@ def main() -> int:
     phase(14)
     nms_entry = phase_nms(dev, rng, det, frames, cfg)
 
+    # ---- 14b. the IResNet epilogue kernel vs its plain version
+    phase("14b")
+    epilogue_entry = phase_conv_epilogue(dev)
+    torch.cuda.empty_cache()
+
     # ---- 15. the fused step as .frtz bundles, replayed as one CUDA graph
     phase(15)
     phase_aot(dev, frames, det_tree, rec_tree, det, rec)
@@ -3524,6 +3734,7 @@ def main() -> int:
                       "no Pallas kernel)",
              launches=main_counts["nms_greedy"], **on_paths("nms_greedy"),
              bench_launches=bench_launches["nms_greedy"], **nms_entry),
+        dict(CONV_EPILOGUE_ENTRY, **dict(epilogue_entry, launches=main_epilogues)),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

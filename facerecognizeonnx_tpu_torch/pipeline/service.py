@@ -440,11 +440,15 @@ class IdentifyService:
         return ctx
 
     def _resolve(self, ctx: dict):
-        """Host fetch + per-request postprocess and future resolution."""
+        """Host fetch + per-request postprocess, then the futures: set after
+        the `resolve` span closes, so that a caller holding its result reads
+        stats that count its batch."""
         with span("resolve"):
-            self._resolve_batch(ctx)
+            results = self._resolve_batch(ctx)
+        for req, result in results:
+            req.future.set_result(result)
 
-    def _resolve_batch(self, ctx: dict):
+    def _resolve_batch(self, ctx: dict) -> List[Tuple[_Request, IdentifyResult]]:
         batch, scales, store = ctx["batch"], ctx["scales"], ctx["store"]
         n_rows = len(store.names)
         wide = any(r.top_k > self.search_top_k for r in batch)
@@ -462,6 +466,7 @@ class IdentifyService:
             feats = feats.cpu().numpy()
         boxes, scores, valid_all = (t.cpu().numpy() for t in (dets.boxes, dets.scores, dets.valid))
         self._batches_run += 1
+        results = []
         for i, req in enumerate(batch):
             valid = valid_all[i][: self.max_faces]
             k = int(valid.sum())
@@ -483,14 +488,13 @@ class IdentifyService:
                     names[j] = [store.names[ii] for ii in f_idx[i, j, :t]]
                     sims[j, :t] = f_sims[i, j, :t]
             inv = 1.0 / scales[i]
-            req.future.set_result(
-                IdentifyResult(
-                    boxes=boxes[i][: self.max_faces] * inv,
-                    scores=scores[i][: self.max_faces],
-                    valid=valid,
-                    names=names,
-                    sims=sims,
-                )
-            )
+            results.append((req, IdentifyResult(
+                boxes=boxes[i][: self.max_faces] * inv,
+                scores=scores[i][: self.max_faces],
+                valid=valid,
+                names=names,
+                sims=sims,
+            )))
             self._requests_served += 1
             self._lat.append((time.perf_counter() - req.t_enqueue) * 1e3)
+        return results

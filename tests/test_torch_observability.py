@@ -159,6 +159,11 @@ def test_exported_fused_step_holds_no_profiler_op(world):
 # ---------------------------------------------------------------- the hot path
 
 
+def _blocks(rec) -> int:
+    """The IBasicBlocks of one forward of the IResNet `rec`."""
+    return sum(len(stage) for stage in rec.stages)
+
+
 def _cpu_waits(monkeypatch):
     """Counts the hot path's waits on the CPU too, which has no stream."""
     monkeypatch.setattr(obs, "host_wait", lambda device: obs.count("host_waits"))
@@ -172,8 +177,9 @@ def test_frames_to_matches_opens_its_stages_in_order(world, monkeypatch):
     ranges = _frt_ranges(prof)
     assert [n for _, _, n in ranges] == IDENTIFY
     assert _inside(ranges[0], ranges) == IDENTIFY[1:]
-    # three anchor-centre uploads (one a stride) and the ArcFace template
-    assert obs.snapshot()["counters"] == {"host_waits": 4}
+    # three anchor-centre uploads (one a stride) and the ArcFace template;
+    # the CPU runs the recognizer's blocks on the eager path
+    assert obs.snapshot()["counters"] == {"host_waits": 4, "iresnet_blocks": _blocks(rec)}
 
 
 class _Ready:
@@ -208,7 +214,8 @@ def test_bucketed_start_and_finish_open_their_stages(world, monkeypatch, short_g
     assert _inside(roots[1], ranges) == ["counts_wait"] + rerun
     assert pipe.corrections == int(short_guess) and out[-1] == 6
     # decode's three uploads, the template, and the wait for the counts
-    assert obs.snapshot()["counters"] == {"host_waits": 5}
+    blocks = (1 + short_guess) * _blocks(world[2])
+    assert obs.snapshot()["counters"] == {"host_waits": 5, "iresnet_blocks": blocks}
 
 
 def test_service_worker_opens_its_stages_and_stats_reports_them(world):
